@@ -1,13 +1,13 @@
 #!/usr/bin/env bash
 # Provision a dongle host (Pi-class edge box) for radio-mapper-tpu.
 #
-# The TPU-native deployment splits the reference's buoy differently
+# This deployment splits the reference's buoy differently
 # (`/root/reference/setup_pi.sh:120-136` installs the whole Python stack on
 # the Pi): here the edge host stays DUMB — it owns the RTL-SDR dongle and
 # runs the stock `rtl_tcp` server plus an autossh reverse tunnel to the
 # compute host (the reference's tunnel pattern,
 # `/root/reference/infra/radio-mapper-tunnel.service:8-16`); all DSP
-# (detection, GCC, solve) runs on the TPU host's buoy runtime pointed at
+# (detection, GCC, solve) runs on the compute host's buoy runtime pointed at
 # the tunneled stream:
 #
 #   python -m radio_mapper_tpu buoy --source rtl_tcp \

@@ -3,7 +3,7 @@
 // Native replacement for the reference's L0/L1 ingest stack: librtlsdr's
 // async bulk-transfer engine (Code/src/librtlsdr.c:1769-1891) and
 // rtl_tcp's buffered network transport (Code/src/rtl_tcp.c:144-365) —
-// re-scoped for a TPU host: the producer thread pulls raw uint8 I/Q from
+// re-scoped for a compute host: the producer thread pulls raw uint8 I/Q from
 // a source (file replay, TCP rtl_tcp stream, or an in-process generator),
 // stamps block boundaries with CLOCK_REALTIME nanoseconds, and lands the
 // bytes in a lock-free ring; the consumer (Python, via ctypes) drains

@@ -1,6 +1,6 @@
 // Lock-free single-producer/single-consumer byte ring buffer.
 //
-// TPU-era replacement for the reference's ingest queues: librtlsdr's
+// Replacement for the reference's ingest queues: librtlsdr's
 // 15x256KiB async USB transfer list (Code/src/librtlsdr.c:1769-1891) and
 // rtl_tcp's mutex-guarded linked list of buffers with drop-oldest at 500
 // entries (Code/src/rtl_tcp.c:144-247). One contiguous power-of-two ring,

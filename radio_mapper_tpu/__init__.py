@@ -1,15 +1,16 @@
-"""radio_mapper_tpu — a TPU-native TDOA geolocation framework.
+"""radio_mapper_tpu — a batched TDOA geolocation framework on an accelerator.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 system ``physiii/radio-mapper`` (a distributed RTL-SDR "buoy" network that
 detects radio signals via FFT power spectra and triangulates emitters with
 time-difference-of-arrival hyperbolic positioning; see
 ``/root/reference/README.md``).
 
 Instead of per-dongle Python threads and a 35-second serial frequency
-schedule, this framework processes *batched* channels on TPU:
+schedule, this framework processes *batched* channels on one device
+(an NVIDIA GPU) or a mesh of them:
 
-- IQ ingest lands in HBM as ``uint8`` interleaved I/Q and is decoded on
+- IQ ingest lands in device memory as ``uint8`` interleaved I/Q and is decoded on
   device (:mod:`radio_mapper_tpu.ops.iq`).
 - The power-spectrum detector (reference ``buoy_node.py:401-433``) becomes a
   batched windowed-FFT PSD + static top-k peak kernel

@@ -1,12 +1,12 @@
 """Command-line runner.
 
 Parity with the reference's `run.py` commands (`run.py:363-432`:
-server | client | web | setup | test) plus TPU-era additions:
+server | client | web | setup | test) plus additions:
 
   server    — central processor (WS ingest + HTTP API + triangulation)
   buoy      — a buoy node (simulated / file / rtl_sdr / rtl_tcp source)
   web       — dashboard (Leaflet map + API proxy)
-  simulate  — synthesize a scenario, run the TPU pipeline, print the fix
+  simulate  — synthesize a scenario, run the pipeline, print the fix
   analyze   — offline .bin capture analysis (spectrum PNG + stats)
   capture   — one-shot IQ capture to .bin (`sdr_capture.py` parity)
   bench     — full-pipeline throughput benchmark
@@ -31,16 +31,13 @@ def _setup_logging(verbose: bool):
 
 
 # Host utility commands run on CPU unless --backend overrides: their
-# workloads are tiny, and routing them through a remote TPU runtime costs
-# the full device-init latency and risks UNIMPLEMENTED ops outside the
-# pipeline's vetted op set. Pipeline/bench commands keep the default
-# backend (the real chip).
+# workloads are a few small blocks, and a process on the card would
+# reserve most of its memory for them. The served path (`server`) stays
+# on the host too until its latency is measured on the card. Pipeline and
+# bench commands keep JAX's default backend (the GPU where there is one).
 _CPU_DEFAULT_COMMANDS = {
     "demod", "adsb", "scan", "analyze", "capture", "sdrtest",
     "eeprom", "test", "setup", "web", "server",
-    # one-shot demo: a remote-TPU AOT compile costs minutes and the CPU
-    # answer is identical; --backend tpu still forces the chip
-    "simulate",
 }
 
 
@@ -48,12 +45,22 @@ def _apply_backend(args):
     choice = getattr(args, "backend", None) or (
         "cpu" if args.command in _CPU_DEFAULT_COMMANDS else "auto"
     )
-    if choice == "cpu":
-        import jax
+    import jax
 
+    if choice == "cpu":
         jax.config.update("jax_platforms", "cpu")
-    # "auto" leaves the environment's platform selection untouched;
-    # "tpu" is the same as auto here (the env already prefers the chip).
+        return
+    if choice == "gpu":
+        from radio_mapper_tpu.utils.device import require_gpu
+
+        try:
+            require_gpu()
+        except RuntimeError as e:
+            raise SystemExit(f"--backend gpu: {e}")
+    # "auto" leaves JAX's platform selection untouched
+    from radio_mapper_tpu.utils.device import enable_compile_cache
+
+    enable_compile_cache()
 
 
 def cmd_server(args):
@@ -165,8 +172,7 @@ def cmd_simulate(args):
             solver_starts=4 if dwells > 1 else 1,
         )
     )
-    # split-complex path: the only one the target TPU runtime executes
-    # (complex elementwise jit is UNIMPLEMENTED there — docs/PROBES.md)
+    # the (re, im) float32 path the uint8 ingest feeds
     iq = np.asarray(cap.iq, np.complex64)
     out = pipe.jit_step_split()(
         jnp.asarray(iq.real), jnp.asarray(iq.imag),
@@ -423,7 +429,7 @@ def _cmd_demod_watch(args, source, freqs_mhz):
     channels mixed/decimated/demodulated in a single batched jit per block,
     per-channel squelch gating, per-channel streaming WAV sinks.
 
-    The TPU-shaped replacement for rtl_fm's retune-and-hop scanner
+    The batched replacement for rtl_fm's retune-and-hop scanner
     (`rtl_fm.c:939-974`): no tuner hops, no settle/flush dead time, no
     missed activity on unwatched frequencies.
     """
@@ -719,7 +725,7 @@ def cmd_test(args):
     print(f"  local ip: {report['local_ip']}")
     print(f"  gps devices: {report['gps_devices'] or 'none'}")
     print(f"  sdr count: {report['sdr_count']}")
-    print(f"  tpu: {report['tpu']}")
+    print(f"  accelerator: {report['accelerator']}")
     print("Ports:")
     for port in (8081, 4000, 7000):
         s = socket.socket()
@@ -872,13 +878,14 @@ def cmd_usbprobe(args):
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="radio_mapper_tpu", description="TPU-native TDOA geolocation framework"
+        prog="radio_mapper_tpu", description="Batched TDOA geolocation framework"
     )
     p.add_argument("-v", "--verbose", action="store_true")
     p.add_argument(
-        "--backend", choices=["auto", "cpu", "tpu"], default=None,
+        "--backend", choices=["auto", "cpu", "gpu"], default=None,
         help="JAX platform; utility commands default to cpu, "
-             "pipeline/bench commands to the environment default",
+             "pipeline/bench commands to JAX's default; gpu fails "
+             "when there is none",
     )
     sub = p.add_subparsers(dest="command", required=True)
 
@@ -923,7 +930,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve canned data when central is unreachable (dev)")
     s.set_defaults(fn=cmd_web)
 
-    s = sub.add_parser("simulate", help="synthetic scenario through the TPU pipeline")
+    s = sub.add_parser("simulate", help="synthetic scenario through the pipeline")
     s.add_argument("--lat", type=float, default=35.47)
     s.add_argument("--lng", type=float, default=-97.51)
     s.add_argument("--signal", default="noise", choices=["noise", "tone", "bpsk", "chirp", "fm"])

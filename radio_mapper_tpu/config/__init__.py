@@ -3,8 +3,8 @@
 Schema and behaviors mirror the reference's `config_manager.py` /
 `config.yaml` (YAML + deep-merge over defaults, ``${VAR:-default}`` env
 expansion with numeric coercion, assert-style validation, dot-path access)
-re-designed as typed dataclasses so the TPU pipeline's *static* parameters
-(block sizes, channel counts, mesh shape) are explicit compile-time values.
+re-designed as typed dataclasses so the batched pipeline's *static* parameters
+(block sizes, channel counts) are explicit compile-time values.
 """
 
 from radio_mapper_tpu.config.schema import (
@@ -19,7 +19,6 @@ from radio_mapper_tpu.config.schema import (
     StorageConfig,
     TdoaConfig,
     TimingConfig,
-    TpuConfig,
     WebConfig,
 )
 from radio_mapper_tpu.config.loader import (
@@ -44,7 +43,6 @@ __all__ = [
     "StorageConfig",
     "TdoaConfig",
     "TimingConfig",
-    "TpuConfig",
     "WebConfig",
     "config_to_dict",
     "deep_merge",

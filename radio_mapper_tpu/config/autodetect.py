@@ -3,7 +3,7 @@
 Parity with `config_manager.py:389-436`: local IP via the UDP-connect
 trick, GPS serial device probing, SDR enumeration via ``rtl_test -t``
 output parsing — every probe degrades gracefully when the hardware or
-binary is absent (this framework must set up cleanly on a TPU host with
+binary is absent (this framework must set up cleanly on a compute host with
 no SDR attached).
 """
 
@@ -54,8 +54,9 @@ def detect_sdr_count(binary: str = "rtl_test", timeout_s: float = 5.0) -> int:
     return int(m.group(1)) if m else 0
 
 
-def detect_tpu() -> Dict:
-    """TPU platform visibility (no reference equivalent)."""
+def detect_accelerator() -> Dict:
+    """JAX device visibility: platform, count and kinds (no reference
+    equivalent)."""
     try:
         import jax
 
@@ -75,5 +76,5 @@ def auto_detect_interfaces() -> Dict:
         "local_ip": detect_local_ip(),
         "gps_devices": detect_gps_devices(),
         "sdr_count": detect_sdr_count(),
-        "tpu": detect_tpu(),
+        "accelerator": detect_accelerator(),
     }

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 from radio_mapper_tpu import constants
 
@@ -189,26 +189,6 @@ class EmergencyConfig:
 
 
 @dataclasses.dataclass
-class TpuConfig:
-    """TPU-specific knobs (no reference equivalent)."""
-
-    mesh_shape: Optional[Tuple[int, int]] = None  # None = balanced over devices
-    num_channels: int = 16  # simultaneous channels per step
-    block_len: int = 16_384
-    max_peaks: int = 8
-    fft_backend: str = "auto"  # auto | xla | matmul
-    solver_iterations: int = 40
-    solver_starts: int = 1
-    gcc_weighting: str = "phat"
-
-    def validate(self):
-        if self.fft_backend not in ("auto", "xla", "matmul"):
-            raise ValueError(f"unknown fft backend {self.fft_backend!r}")
-        if self.gcc_weighting not in ("cc", "phat", "scot", "roth"):
-            raise ValueError(f"unknown gcc weighting {self.gcc_weighting!r}")
-
-
-@dataclasses.dataclass
 class Config:
     buoy: BuoyConfig = dataclasses.field(default_factory=BuoyConfig)
     sdr: SdrConfig = dataclasses.field(default_factory=SdrConfig)
@@ -223,7 +203,6 @@ class Config:
     web: WebConfig = dataclasses.field(default_factory=WebConfig)
     development: DevelopmentConfig = dataclasses.field(default_factory=DevelopmentConfig)
     emergency: EmergencyConfig = dataclasses.field(default_factory=EmergencyConfig)
-    tpu: TpuConfig = dataclasses.field(default_factory=TpuConfig)
 
     def validate(self) -> "Config":
         """Cross-field validation (parity: `config_manager.py:229-259`)."""
@@ -231,7 +210,6 @@ class Config:
         self.timing.validate()
         self.signal_detection.validate()
         self.tdoa.validate()
-        self.tpu.validate()
         if not -90.0 <= self.buoy.location.latitude <= 90.0:
             raise ValueError("latitude out of range")
         if not -180.0 <= self.buoy.location.longitude <= 180.0:

@@ -6,7 +6,7 @@ module keeps that model (functions suffixed ``_sphere``) for behavioral
 parity and regression tests, and adds a proper WGS84 ellipsoid plus local
 ENU (east-north-up) tangent frames — the solver works in ENU meters, where
 a ≤50 km buoy network (`config.yaml:145`) is numerically comfortable in
-float32 on TPU.
+float32 on the device.
 
 All functions accept scalars or arrays and are jax-traceable (they are also
 valid NumPy code, so float64 golden values come from calling them with

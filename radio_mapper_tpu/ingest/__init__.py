@@ -3,7 +3,7 @@
 The ingest abstraction replaces the reference's L0-L2 stack (librtlsdr →
 rtl_sdr CLI → Python pipe readers). Every source yields complex64 blocks
 at a known sample rate and supports retuning, so the node runtime and the
-TPU pipeline are agnostic to where samples come from:
+device pipeline are agnostic to where samples come from:
 
 - :class:`SimulatedSource` — deterministic synthetic streams from a
   :mod:`radio_mapper_tpu.sim` scenario (the hardware-free dev/test path;

@@ -2,7 +2,7 @@
 
 The native layer owns the byte-moving hot path on the host: a producer
 thread pulls uint8 I/Q from file/TCP/synthetic sources into a lock-free
-ring with nanosecond block timestamps and drop accounting — the TPU-host
+ring with nanosecond block timestamps and drop accounting — the compute-host
 equivalent of librtlsdr's async transfer engine
 (`Code/src/librtlsdr.c:1769-1891`). Python drains fixed blocks and ships
 them to the device.

@@ -30,6 +30,7 @@ import dataclasses
 import time
 from typing import Callable, Optional
 
+import jax
 import numpy as np
 
 
@@ -86,12 +87,9 @@ class IngestLoop:
     ):
         """``blocks_per_dispatch > 1`` stacks k consecutive blocks as a
         leading batch axis per step call — the pipeline is batch-generic,
-        so one dispatch (and its fixed ~1.45 ms floor + transfer-issue
-        overhead, docs/PROBES.md) then covers k blocks of real-time
-        budget. This is the dispatch-bound regime's lever: on a
-        high-latency link the floor eats a single block's budget."""
-        import jax
-
+        so one dispatch (and its fixed dispatch and transfer-issue
+        overhead) then covers k blocks of real-time budget. This is the
+        dispatch-bound regime's lever."""
         self.step = step
         self.ingest = ingest
         self.channels = channels
@@ -126,11 +124,9 @@ class IngestLoop:
         Call BEFORE opening a paced source so compile time doesn't fill
         the ring and show up as spurious drops.
         """
-        from radio_mapper_tpu.utils.device import force_fetch
-
         rng = np.random.default_rng(seed)
         block = rng.integers(0, 256, size=self._block_shape(), dtype=np.uint8)
-        force_fetch(self.step(self._device_put(block), self.anchors))
+        jax.block_until_ready(self.step(self._device_put(block), self.anchors))
 
     def _block_shape(self):
         base = (self.channels, self.num_buoys, 2 * self.block_len)
@@ -162,12 +158,9 @@ class IngestLoop:
     def run(self, num_steps: int, *, warmup_steps: int = 1) -> IngestLoopStats:
         """Run the overlap loop; returns sustained-throughput stats.
 
-        Timing is fetch-closed: per-call sync is unreliable on remote
-        device runtimes (docs/PROBES.md), so the epoch ends with ONE
-        host fetch of a scalar derived from the final step's outputs.
+        The timed window ends when the final step's outputs are ready;
+        steps run in order on the device, so every earlier one is done.
         """
-        from radio_mapper_tpu.utils.device import force_fetch
-
         # Warmup: compile + first transfers outside the timed window.
         # NOTE: with a paced source the ring fills during compile, so for
         # drop-accounting runs compile the step BEFORE opening the source
@@ -199,8 +192,7 @@ class IngestLoop:
                 next_dev = self._device_put(block)
                 host_ms += (tp - th) * 1e3
                 put_ms += (time.perf_counter() - tp) * 1e3
-        # one trailing fetch forces every dispatched step to completion
-        force_fetch(out)
+        jax.block_until_ready(out)
         elapsed = time.perf_counter() - t0
 
         samples_per_step = (

@@ -85,10 +85,6 @@ class PipelineConfig:
 
 
 class PipelineOutput(NamedTuple):
-    # NOTE: peaks.bin_index refers to the spectrum grid the routing
-    # actually detected on — block_len bins on the unfused path, nfft
-    # (padded) bins on the fused-GCC path. freq_offset_hz is the
-    # portable frequency field (see detect_ops.PeakSet docstring).
     peaks: detect_ops.PeakSet  # per-buoy detections [..., B, K]
     correlation: gcc_ops.CorrelationPeak  # per-pair TDOA [..., P]
     pair_weights: jnp.ndarray  # [..., P]
@@ -104,11 +100,6 @@ class TDOAPipeline:
         i_idx, j_idx = gcc_ops.pair_indices(config.num_buoys)
         self.pair_i = jnp.asarray(i_idx)
         self.pair_j = jnp.asarray(j_idx)
-        # STATIC numpy copies for kernels that bake the pair table into
-        # the program (a closed-over jnp array turns into a tracer under
-        # lax.scan closure lifting, breaking the static register gather)
-        self._pair_i_np = np.asarray(i_idx)
-        self._pair_j_np = np.asarray(j_idx)
 
     # -- stages ---------------------------------------------------------
 
@@ -194,20 +185,6 @@ class TDOAPipeline:
             buoy_confidence=buoy_conf,
         )
 
-    def _full_detect_kwargs(self) -> dict:
-        """The complete detection-parameter bundle (config + reference
-        constants) the fused kernels need spelled out explicitly."""
-        c = self.config
-        return dict(
-            sample_rate_hz=c.sample_rate_hz,
-            threshold_db=c.detection_threshold_db,
-            min_distance_bins=constants.DEFAULT_PEAK_MIN_DISTANCE_BINS,
-            dc_notch_hz=constants.DEFAULT_DC_NOTCH_HZ,
-            confidence_floor=constants.DEFAULT_CONFIDENCE_FLOOR,
-            snr_fullscale_db=constants.DEFAULT_SNR_FULLSCALE_DB,
-            power_offset_db=c.power_offset_db,
-        )
-
     # -- full steps -----------------------------------------------------
 
     def step(self, iq: jnp.ndarray, anchors_enu: jnp.ndarray) -> PipelineOutput:
@@ -266,159 +243,51 @@ class TDOAPipeline:
     def step_split(
         self, re: jnp.ndarray, im: jnp.ndarray, anchors_enu: jnp.ndarray
     ) -> PipelineOutput:
-        """Full pipeline with NO complex dtype anywhere in the program.
+        """Full pipeline on (re, im) float32 planes ``[..., B, N]``.
 
-        Identical math to :meth:`step` on (re, im) float32 pairs — the
-        execution path for TPU runtimes that mishandle complex64 (see
+        Identical math to :meth:`step`; this is the form the uint8 ingest
+        feeds (:meth:`step_split_uint8`, see
         :mod:`radio_mapper_tpu.ops.split_complex`).
         """
         c = self.config
         n = re.shape[-1]
         if c.correlation_dwells > 1:
             return self._step_split_multidwell(re, im, anchors_enu)
-        use_fused = sc_ops.gcc_fused_enabled(n + c.max_lag, c.weighting)
-        fused_detect = False
-        row_smax = None
-        if use_fused:
-            # ONE forward transform (CT bin order) feeds both stages: the
-            # fused pair stage consumes the CT-order spectra directly, and
-            # the detector either runs IN the forward kernel itself (the
-            # combined FFT+detect kernel — the spectra never round-trip
-            # HBM between transform and detection), or as the standalone
-            # fused CT detect kernel, or falls back to a single cheap
-            # un-permuting transpose — no second FFT pass, no complex bin
-            # transpose, ever.
-            nfft_ct = sc_ops.planned_ct_nfft(n + c.max_lag)
-            fused_detect = detect_ops.fused_detect_enabled(
-                nfft_ct,
-                min_distance_bins=constants.DEFAULT_PEAK_MIN_DISTANCE_BINS,
-                noise_floor_stride=c.noise_floor_stride,
-            )
-            combined = fused_detect and detect_ops.fused_fft_detect_enabled(
-                nfft_ct,
-                min_distance_bins=constants.DEFAULT_PEAK_MIN_DISTANCE_BINS,
-                noise_floor_stride=c.noise_floor_stride,
-            )
-            from radio_mapper_tpu.ops.pallas import channel_kernel
-
-            mega = combined and channel_kernel.supported(
-                nfft_ct, c.num_buoys,
-                min_distance_bins=constants.DEFAULT_PEAK_MIN_DISTANCE_BINS,
-                noise_floor_stride=c.noise_floor_stride,
-                weighting=c.weighting,
-            )
-            if mega:
-                # The whole channel — forward FFT, detection, pair stage
-                # — runs as ONE kernel; spectra never reach HBM
-                # (ops/pallas/channel_kernel.py).
-                nfft_m, partials, window = sc_ops.flagship_channel_step(
-                    re, im, self._pair_i_np, self._pair_j_np,
-                    max_lag=c.max_lag, eps=c.gcc_eps,
-                    **self._full_detect_kwargs(),
-                )
-                peaks = detect_ops.peaks_from_ct_partials(
-                    *partials,
-                    nfft=nfft_m,
-                    sample_rate_hz=c.sample_rate_hz,
-                    max_peaks=c.max_peaks,
-                    power_offset_db=c.power_offset_db,
-                )
-                pk = gcc_ops.peaks_from_lag_mags(
-                    window, sample_rate_hz=c.sample_rate_hz,
-                    max_lag=c.max_lag,
-                )
-                return self._finish(peaks, pk, anchors_enu)
-            if combined:
-                in_kernel_topk = detect_ops._COMBINED_TOPK
-                ct_spectra, partials, row_smax = (
-                    sc_ops.receiver_spectra_ct_detect(
-                        re, im, max_lag=c.max_lag,
-                        **self._full_detect_kwargs(),
-                        precision=sc_ops.gcc_forward_precision(c.weighting),
-                        emit_topk=c.max_peaks if in_kernel_topk else 0,
-                    )
-                )
-                peaks = detect_ops.detect_peaks_ct(
-                    ct_spectra[0], ct_spectra[1],
-                    sample_rate_hz=c.sample_rate_hz,
-                    max_peaks=c.max_peaks,
-                    threshold_db=c.detection_threshold_db,
-                    power_offset_db=c.power_offset_db,
-                    partials=partials,
-                    kernel_topk=in_kernel_topk,
-                )
-            else:
-                ct_spectra = sc_ops.receiver_spectra_ct(
-                    re, im, max_lag=c.max_lag,
-                    precision=sc_ops.gcc_forward_precision(c.weighting),
-                )
-                if fused_detect:
-                    peaks = detect_ops.detect_peaks_ct(
-                        ct_spectra[0], ct_spectra[1],
-                        sample_rate_hz=c.sample_rate_hz,
-                        max_peaks=c.max_peaks,
-                        threshold_db=c.detection_threshold_db,
-                        power_offset_db=c.power_offset_db,
-                    )
-                else:
-                    power_db = (
-                        sc_ops.ct_power_db(ct_spectra[0], ct_spectra[1])
-                        + c.power_offset_db
-                    )
-        else:
-            spectra = sc_ops.receiver_spectra_split(re, im, max_lag=c.max_lag)
-            if spectra[2] == 2 * n:
-                # Zero-padding to exactly 2N makes the padded transform's
-                # even bins equal the plain N-point FFT bit-for-bit — the
-                # detector's spectrum is a strided view of the correlation
-                # FFTs, free.
-                fr, fi, _ = spectra
-                power_db = (
-                    10.0 * jnp.log10(fr[..., ::2] ** 2 + fi[..., ::2] ** 2 + 1e-24)
-                    + c.power_offset_db
-                )
-            else:
-                power_db = (
-                    sc_ops.power_spectrum_db_split(re, im) + c.power_offset_db
-                )
-        if not fused_detect:
-            peaks = detect_ops.detect_peaks(
-                power_db,
-                sample_rate_hz=c.sample_rate_hz,
-                max_peaks=c.max_peaks,
-                threshold_db=c.detection_threshold_db,
-                noise_floor_stride=c.noise_floor_stride,
-            )
-        if use_fused:
-            # Whole pair stage (whiten × iFFT × lag slice) fused in VMEM —
-            # the CT-order forward never materializes a bin transpose.
-            corr_sc = sc_ops.gcc_phat_all_pairs_split_fused(
-                re, im,
-                sample_rate_hz=c.sample_rate_hz,
-                max_lag=c.max_lag,
-                weighting=c.weighting,
-                eps=c.gcc_eps,
-                spectra=ct_spectra,
-                row_smax=row_smax,
+        spectra = sc_ops.receiver_spectra_split(re, im, max_lag=c.max_lag)
+        if spectra[2] == 2 * n:
+            # Zero-padding to exactly 2N makes the padded transform's
+            # even bins equal the plain N-point FFT bit-for-bit — the
+            # detector's spectrum is a strided view of the correlation
+            # FFTs, free.
+            fr, fi, _ = spectra
+            power_db = (
+                10.0 * jnp.log10(fr[..., ::2] ** 2 + fi[..., ::2] ** 2 + 1e-24)
+                + c.power_offset_db
             )
         else:
-            corr_sc = sc_ops.gcc_phat_all_pairs_split(
-                re, im,
-                sample_rate_hz=c.sample_rate_hz,
-                max_lag=c.max_lag,
-                weighting=c.weighting,
-                eps=c.gcc_eps,
-                spectra=spectra,
-            )
+            power_db = sc_ops.power_spectrum_db_split(re, im) + c.power_offset_db
+        peaks = detect_ops.detect_peaks(
+            power_db,
+            sample_rate_hz=c.sample_rate_hz,
+            max_peaks=c.max_peaks,
+            threshold_db=c.detection_threshold_db,
+            noise_floor_stride=c.noise_floor_stride,
+        )
+        corr_sc = sc_ops.gcc_phat_all_pairs_split(
+            re, im,
+            sample_rate_hz=c.sample_rate_hz,
+            max_lag=c.max_lag,
+            weighting=c.weighting,
+            eps=c.gcc_eps,
+            spectra=spectra,
+        )
         return self._finish(peaks, corr_sc, anchors_enu)
 
     def _step_split_multidwell(
         self, re: jnp.ndarray, im: jnp.ndarray, anchors_enu: jnp.ndarray
     ) -> PipelineOutput:
         """Narrowband split-complex path: dwell-averaged PSD detection +
-        one coherent full-capture correlation (see ``correlation_dwells``).
-        Uses the generic split GCC (the fused CT kernel's length planner
-        targets single-dwell flagship sizes)."""
+        one coherent full-capture correlation (see ``correlation_dwells``)."""
         c = self.config
         k, n = c.correlation_dwells, c.block_len
         if re.shape[-1] != k * n:
@@ -468,9 +337,8 @@ class TDOAPipeline:
     ) -> PipelineOutput:
         """K consecutive blocks in ONE dispatch: ``raw [K, ..., B, 2N]``.
 
-        `lax.scan` folds the per-dispatch floor (~1.45-2.3 ms on the
-        remote runtime, ~15% of a single 128-ch step — docs/PROBES.md)
-        across K blocks while compiling the block body ONCE — unlike a
+        `lax.scan` folds the per-dispatch cost across K blocks while
+        compiling the block body ONCE — unlike a
         leading batch axis, the program size and peak HBM working set
         stay those of a single block, so K scales without recompiling a
         bigger graph or pressuring memory. Outputs stack on a leading K
@@ -516,9 +384,9 @@ class TDOAPipeline:
         self, *, batch: tuple = (), seed: int = 0, uint8: bool = False,
         split: bool = False,
     ):
-        """Random inputs. ``split=True`` returns host-built (re, im, anchors)
-        float32 arrays — REQUIRED on runtimes where complex64 cannot even be
-        device_put (splitting a complex device array is already too late).
+        """Random inputs: ``(iq, anchors)`` complex64 by default,
+        ``(raw, anchors)`` with ``uint8=True``, ``(re, im, anchors)``
+        float32 planes for :meth:`step_split` with ``split=True``.
         """
         c = self.config
         rng = np.random.default_rng(seed)

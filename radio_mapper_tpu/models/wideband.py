@@ -3,7 +3,7 @@
 "64 buoys wideband (10 MS/s) with polyphase channelizer + all-pairs
 GCC-PHAT, 1 host" (BASELINE.json configs[3]). The reference covers wide
 spectrum by HOPPING one narrow tuner through a 35 s schedule
-(`/root/reference/buoy_node.py:146-153`); the TPU design watches the
+(the reference's `buoy_node.py:146-153`); this design watches the
 whole band at once: each buoy's 10 MS/s stream splits into M uniform
 subchannels (ops/channelizer PFB), and every subchannel runs the full
 all-pairs GCC-PHAT + LM solve — 64 receivers ⇒ 2016 pairs per
@@ -13,17 +13,16 @@ Structure per step (one jit-compiled program):
 
   re/im [B, N_wide] ── PFB channelize (split-complex) ──► [M, B, n_sub]
     └─ lax.scan over M subchannels:
-         forward CT FFT (B rows) ─► one-hot pair gather (2·P rows)
-         ─► row-aligned fused GCC kernel (whiten × iDFT × lag window)
-         ─► peak pick ─► PSR weights ─► batched LM solve
+         forward FFT (B rows) ─► pair gather (2·P rows)
+         ─► whiten ─► inverse FFT ─► lag window
+  then, batched over all M subchannels:
+         peak pick ─► PSR weights ─► LM solve
        ⇒ per-subchannel fixes [M, 3] + lags/weights [M, P]
 
 `lax.scan` (not a batch axis) keeps the peak working set at ONE
-subchannel's pair spectra (~165 MB at P=2016, nfft 5120) instead of M×
-that, and compiles the subchannel body once — the same argument as the
-flagship multi-block scan (models/pipeline.py). The pair stage reuses
-`gcc_kernel.gcc_rows_lag_mags`, the exact shape proven on-chip by the
-r3 EP bench (2016 pairs / 4.19 ms incl. solve, docs/PROBES.md).
+subchannel's pair spectra (~140 MB of f32 planes at P=2016, nfft 4320)
+instead of M× that, and compiles the subchannel body once — the same
+argument as the flagship multi-block scan (models/pipeline.py).
 """
 
 from __future__ import annotations
@@ -94,90 +93,26 @@ class WidebandTDOAPipeline:
         i_idx, j_idx = gcc_ops.pair_indices(config.num_buoys)
         self.pair_i = np.asarray(i_idx)
         self.pair_j = np.asarray(j_idx)
-        self._use_fused = sc_ops.gcc_fused_enabled(
-            config.sub_block + config.max_lag, config.weighting
-        )
 
     def _pair_stage(self, cre, cim):
         """One subchannel: [B, n_sub] split spectra → [P, 2L+1] |r|."""
         c = self.config
         L = c.max_lag
-        if self._use_fused:
-            fr, fi, nfft = sc_ops.receiver_spectra_ct(
-                cre, cim, max_lag=L,
-                precision=sc_ops.gcc_forward_precision(c.weighting),
-            )
-        else:
-            nfft = fft_ops.friendly_fft_len(c.sub_block + L)
-            pad = [(0, 0), (0, nfft - c.sub_block)]
-            fr, fi = fft_ops.fft_re_im(jnp.pad(cre, pad), jnp.pad(cim, pad))
-        from radio_mapper_tpu.ops import safe
-
-        if self._use_fused:
-            from radio_mapper_tpu.ops.pallas import gcc_kernel
-
-            # Per-pair l2rx gate scales from per-receiver maxima: one
-            # cheap [B, nfft] reduction replaces the kernel's [P, nfft]
-            # one (P/B ≈ 31× less reduction work at 64 buoys).
-            s2 = None
-            if c.weighting == "phat" and gcc_kernel._PHAT_GATE == "l2rx":
-                rmax = jnp.max(fr * fr + fi * fi, axis=-1)  # [B]
-                s2 = (
-                    safe.pair_select(rmax[None, :], self.pair_i, axis=-1)
-                    * safe.pair_select(rmax[None, :], self.pair_j, axis=-1)
-                )[0]
-            if gcc_kernel.onehot_pairs_enabled(c.num_buoys, nfft):
-                # Gather IN-kernel: all B receiver spectra stay resident
-                # per grid cell and two tiny one-hot MXU dots select the
-                # chunk's pair rows — the 4 × [P, nfft] gathered arrays
-                # (2 × ~10.6 GB of HBM traffic per config-4 block,
-                # ab_r5_wideband.log) never exist.
-                gname = (
-                    "default" if c.weighting == "phat" else None
-                )
-                return gcc_kernel.gcc_pairs_onehot_lag_mags(
-                    fr, fi, jnp.asarray(self.pair_i), jnp.asarray(self.pair_j),
-                    max_lag=L, eps=c.gcc_eps, weighting=c.weighting,
-                    s2=s2, gather_precision=gname,
-                )
-            gp = sc_ops.gcc_gather_precision(c.weighting)
-            xfr = safe.pair_select(fr, self.pair_i, axis=-2, precision=gp)
-            xfi = safe.pair_select(fi, self.pair_i, axis=-2, precision=gp)
-            yfr = safe.pair_select(fr, self.pair_j, axis=-2, precision=gp)
-            yfi = safe.pair_select(fi, self.pair_j, axis=-2, precision=gp)
-            return gcc_kernel.gcc_rows_lag_mags(
-                xfr, xfi, yfr, yfi,
-                max_lag=L, eps=c.gcc_eps, weighting=c.weighting, s2=s2,
-            )
-        # XLA fallback pair gather (HIGHEST for "cc", bf16 for PHAT)
-        gp = sc_ops.gcc_gather_precision(c.weighting)
-        xfr = safe.pair_select(fr, self.pair_i, axis=-2, precision=gp)
-        xfi = safe.pair_select(fi, self.pair_i, axis=-2, precision=gp)
-        yfr = safe.pair_select(fr, self.pair_j, axis=-2, precision=gp)
-        yfi = safe.pair_select(fi, self.pair_j, axis=-2, precision=gp)
-        rre = xfr * yfr + xfi * yfi
-        rim = xfi * yfr - xfr * yfi
-        if c.weighting == "phat":
-            mag = jnp.sqrt(rre * rre + rim * rim)
-            scale = jnp.max(mag, axis=-1, keepdims=True)
-            denom = mag + c.gcc_eps * scale + 1e-30
-            rre, rim = rre / denom, rim / denom
-        ire, iim = fft_ops.fft_re_im(rre, -rim)
-        ire, iim = ire / nfft, -iim / nfft
-        win = lambda a: jnp.concatenate([a[..., nfft - L:], a[..., : L + 1]], -1)
-        return jnp.sqrt(win(ire) ** 2 + win(iim) ** 2)
+        nfft = fft_ops.friendly_fft_len(c.sub_block + L)
+        fr, fi = fft_ops.fft_re_im(cre, cim, n=nfft)
+        return sc_ops.pair_lag_mags(
+            fr, fi, self.pair_i, self.pair_j,
+            max_lag=L, weighting=c.weighting, eps=c.gcc_eps,
+        )
 
     def _batched_tail(self, mags, anchors_enu):
         """Peak pick + PSR weights + LM solve, BATCHED over the leading
         subchannel axis: ``mags [M, P, 2L+1]`` → (fixes [M, 3], cost [M],
         lags [M, P], weights [M, P]).
 
-        r5 restructure: the r4 design ran this tail INSIDE the
-        per-subchannel `lax.scan`, serializing 16 rounds of tiny
-        argmax/refine/LM ops — measured 21.3 of the 34.8 ms block
-        (docs/probe_logs/ab_r5_wideband.log per-stage profile). Only the
-        memory-heavy pair stage needs the scan; this tail's inputs are
-        ~33 MB total, so it runs once, batched, on big ops."""
+        Only the memory-heavy pair stage needs the scan; inside it this
+        tail would serialise M rounds of tiny argmax/refine/LM ops. Its
+        inputs are ~33 MB at config 4, so it runs once, batched."""
         c = self.config
         pk = gcc_ops.peaks_from_lag_mags(
             mags, sample_rate_hz=c.sub_rate_hz, max_lag=c.max_lag
@@ -275,6 +210,8 @@ def build_wideband_sharded_step(mesh, config: WidebandConfig, *, axis: str = "su
             f"{n_shards} shards"
         )
 
+    repl = NamedSharding(mesh, P())
+
     def local_scan(cre_l, cim_l, anchors):
         # cre_l/cim_l: [M/n, B, n_sub] — this shard's subchannels
         def body(carry, xs):
@@ -287,9 +224,6 @@ def build_wideband_sharded_step(mesh, config: WidebandConfig, *, axis: str = "su
         local_scan, mesh=mesh,
         in_specs=(P(axis, None, None), P(axis, None, None), P()),
         out_specs=(P(axis), P(axis), P(axis), P(axis)),
-        # the fused kernels' interpret-mode grid carries lack vma
-        # annotations (same limitation as pair_ep's fused routing)
-        check_vma=False,
     )
 
     def step(re, im, anchors):
@@ -300,6 +234,12 @@ def build_wideband_sharded_step(mesh, config: WidebandConfig, *, axis: str = "su
             taps_per_channel=c.taps_per_channel,
             shift=False,
         )
+        # Keep the PFB replicated: without the constraint XLA propagates
+        # the subchannel sharding back onto the branch FFT's transform
+        # axis, which its FFT partitioner cannot split. (On the CPU
+        # backend a constraint by buoy compiled to this same replicated
+        # PFB.)
+        cre, cim = jax.lax.with_sharding_constraint((cre, cim), repl)
         cre = jnp.moveaxis(cre, -2, 0)
         cim = jnp.moveaxis(cim, -2, 0)
         fixes, cost, lags, weights = inner(cre, cim, anchors)
@@ -310,5 +250,4 @@ def build_wideband_sharded_step(mesh, config: WidebandConfig, *, axis: str = "su
             ),
         )
 
-    repl = NamedSharding(mesh, P())
     return jax.jit(step), (repl, repl, repl)

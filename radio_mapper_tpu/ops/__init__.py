@@ -1,4 +1,4 @@
-"""TPU compute ops: IQ codec, windows, spectral analysis, detection, GCC-PHAT."""
+"""Compute ops: IQ codec, windows, spectral analysis, detection, GCC-PHAT."""
 
 from radio_mapper_tpu.ops import fft
 from radio_mapper_tpu.ops import iq

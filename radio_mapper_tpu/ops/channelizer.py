@@ -3,7 +3,7 @@
 The reference serializes frequency coverage in *time*: every buoy hops
 through a 35 s schedule, one narrow channel per dwell
 (`buoy_node.py:146-153`), and `rtl_power` hops a single dongle across a
-sweep (`Code/src/rtl_power.c:427-530`). The TPU-native design replaces
+sweep (`Code/src/rtl_power.c:427-530`). This design replaces
 hopping with *simultaneity*: one wideband stream is split into M uniformly
 spaced channels in a single batched op, so all monitored frequencies are
 watched continuously — the channel axis then becomes a batch/shard axis.
@@ -14,8 +14,7 @@ Structure (critically sampled PFB):
   3. sum the T tap blocks — an ``[F, T, M] × [T, M] → [F, M]`` contraction;
   4. FFT across the M branch axis → per-channel complex baseband at fs/M.
 
-Steps 2–3 are one fused einsum (VPU) and step 4 is XLA's batched FFT; for
-large M·T the contraction is MXU-eligible. The prototype filter is designed
+Steps 2–3 are T shifted multiply-adds and step 4 is XLA's batched FFT. The prototype filter is designed
 once in NumPy (Kaiser-windowed sinc) and baked into the graph as a constant.
 """
 
@@ -53,8 +52,7 @@ def polyphase_filter_apply(cols: jnp.ndarray, h: jnp.ndarray, num_frames: int) -
 
     The framed formulation (``cols[..., idx, :]`` → ``[..., F, T, M]``
     einsum) materializes T copies of the stream — at the config-4 shape
-    that is ~4 GB of HBM traffic and measured 4.7 ms of a 35 ms block
-    (docs/probe_logs/ab_r5_wideband.log). T strided slices of the SAME
+    that is ~4 GB of device-memory traffic. T strided slices of the SAME
     buffer read ~T× less; the T-term sum order (ascending t, f32) differs
     from the einsum's only in rounding (≤1 ulp per term).
     """

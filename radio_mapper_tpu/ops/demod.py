@@ -25,8 +25,8 @@ def fm_demod(iq: jnp.ndarray, *, gain: float = 1.0, prev: Optional[jnp.ndarray] 
     """Polar-discriminant FM: angle(x[n] · conj(x[n−1])).
 
     The reference computes this per-sample with a fast atan2 LUT
-    (`rtl_fm.c:427-515`); on TPU it is one shifted multiply + arctan2 on
-    the VPU. ``prev``: last sample of the previous block per batch element
+    (`rtl_fm.c:427-515`); here it is one shifted multiply + arctan2,
+    fused by XLA. ``prev``: last sample of the previous block per batch element
     (carried state for streaming continuity), defaults to the first sample
     (zero first output).
     """
@@ -106,7 +106,7 @@ def resample_pow2(audio: jnp.ndarray, out_len: int) -> jnp.ndarray:
     The reference uses a linear-interpolation arbitrary resampler
     (`rtl_fm.c:665-729`); the batched equivalent here is FFT-domain
     truncation/zero-padding, which is exact for band-limited audio and
-    maps to the framework's matmul FFT on TPU.
+    maps to the framework's FFT (ops/fft.py).
     """
     n = audio.shape[-1]
     spec = fft_ops.fft(audio.astype(jnp.complex64))
@@ -146,7 +146,7 @@ def fir_decimate(
 
     The proper version of rtl_fm's droop-compensated downsampler cascade
     (`rtl_fm.c:362-420`): ~50 dB stopband instead of the boxcar's sinc
-    sidelobes, expressed as one static frames-einsum the MXU executes.
+    sidelobes, expressed as one static frames-einsum.
     ``cutoff`` is the passband edge as a fraction of the OUTPUT Nyquist.
     """
     if factor <= 1:
@@ -178,7 +178,7 @@ def channelize_watch(
     Mixes the block down by each static frequency offset and boxcar-
     decimates to the channel rate (the decimator IS the anti-alias filter,
     like rtl_fm's downsampler, `rtl_fm.c:362-420`). Returns ``[..., W, M]``
-    complex channels. This is the TPU-shaped replacement for rtl_fm's
+    complex channels. This is the batched replacement for rtl_fm's
     retune-and-hop scanning controller (`rtl_fm.c:939-974`): instead of
     hopping the tuner between frequencies and listening to one at a time,
     every watch frequency demodulates simultaneously from the same

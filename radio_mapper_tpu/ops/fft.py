@@ -1,28 +1,12 @@
-"""TPU-native FFT: four-step (Bailey) decomposition into MXU matmuls.
+"""The framework's FFT entry points, on XLA's native FFT.
 
-XLA's native FFT is not implemented on every TPU runtime (this repo's
-target chip reports UNIMPLEMENTED for ``jnp.fft.*``), and even where it is,
-the MXU — not a scalar butterfly network — is where a TPU's FLOPs live. So
-the framework carries its own FFT built from dense DFT matmuls:
-
-    N = N1 · N2, n = n1 + N1·n2, k = k2 + N2·k1
-    X[k2 + N2·k1] = Σ_{n1} W_N^{n1 k2} · W_{N1}^{n1 k1}
-                     · Σ_{n2} x[n1 + N1·n2] · W_{N2}^{n2 k2}
-
-i.e. an inner DFT over n2 (recursing until the length fits a direct DFT
-matmul), an elementwise twiddle, and an outer DFT matmul. Complex arithmetic
-is decomposed into real float32 matmuls (4 per complex product) so every
-stage is a plain ``dot_general`` the MXU executes natively; DFT and twiddle
-matrices are NumPy-precomputed constants baked into the jit graph.
-
-Cost: 2·N·(N1+N2) MACs vs. N·log2 N for a radix-2 FFT — ~18× the FLOPs at
-N=16384 — but on the MXU's systolic array that trade wins by an order of
-magnitude over scalar/vector butterflies, and XLA fuses the twiddles into
-the surrounding elementwise stream.
-
-The module is the framework's single FFT entry point: ``fft``/``ifft``
-dispatch to XLA's native FFT where it exists (CPU golden paths) and to the
-matmul implementation on TPU; ``set_backend`` forces either.
+Every transform in the pipeline goes through this module: the complex
+``fft``/``ifft`` used by the complex-dtype paths, and ``fft_re_im`` /
+``ifft_re_im`` for the split (re, im) float32 paths that the uint8
+ingest feeds. All of them lower to XLA's FFT op, which is cuFFT on the
+GPU and DUCC on the CPU. The split forms assemble a complex64 array,
+transform it and take it apart again; XLA fuses the assembly into the
+surrounding elementwise work.
 """
 
 from __future__ import annotations
@@ -32,170 +16,16 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
-
-# Largest direct DFT matmul. 1024² f32 matrices are 4 MiB/part — small next
-# to VMEM-resident working sets, and one 1024-DFT is a single MXU-shaped
-# [batch,1024]×[1024,1024] contraction.
-MAX_DIRECT = 1024
-
-_BACKEND = "auto"  # auto | xla | matmul
-
-
-def set_backend(name: str) -> None:
-    """Force the FFT implementation: 'xla', 'matmul', 'pallas', or 'auto'."""
-    global _BACKEND
-    if name not in ("auto", "xla", "matmul", "pallas"):
-        raise ValueError(f"unknown fft backend {name!r}")
-    _BACKEND = name
-
-
-def get_backend() -> str:
-    return _BACKEND
-
-
-def _use_matmul() -> bool:
-    if _BACKEND == "matmul":
-        return True
-    if _BACKEND == "xla":
-        return False
-    return jax.default_backend() == "tpu"
-
-
-@lru_cache(maxsize=None)
-def _dft_matrix(n: int) -> Tuple[np.ndarray, np.ndarray]:
-    """(re, im) of the symmetric DFT matrix W[j,k] = exp(-2πi·jk/n), f32."""
-    jk = np.outer(np.arange(n), np.arange(n))
-    w = np.exp(-2j * np.pi * jk / n)
-    return w.real.astype(np.float32), w.imag.astype(np.float32)
-
-
-@lru_cache(maxsize=None)
-def _twiddle(n1: int, n2: int) -> Tuple[np.ndarray, np.ndarray]:
-    """(re, im) of T[n1, k2] = exp(-2πi·n1·k2/(n1·n2)), f32."""
-    t = np.exp(-2j * np.pi * np.outer(np.arange(n1), np.arange(n2)) / (n1 * n2))
-    return t.real.astype(np.float32), t.imag.astype(np.float32)
-
-
-def _split_length(n: int) -> Tuple[int, int]:
-    """Pick N1 (outer, ≤ MAX_DIRECT, near √N) · N2 = N."""
-    best = None
-    n1 = 1
-    while n1 * n1 <= n:
-        if n % n1 == 0 and n1 <= MAX_DIRECT:
-            best = n1
-        n1 += 1
-    if best is None or best == 1:
-        raise ValueError(
-            f"FFT length {n} has no usable factorization (needs a factor ≤ {MAX_DIRECT})"
-        )
-    return best, n // best
-
-
-# TPU MXUs multiply in bfloat16 by default (~8 mantissa bits — 1e-2 class
-# error on a DFT). HIGH requests the 3-pass f32 algorithm: measured on the
-# target chip it matches HIGHEST's GCC lag to 1e-4 samples while running
-# ~15% faster end-to-end, so it is the default; set_precision("highest")
-# buys the 6-pass version. On CPU all settings are no-ops.
-_PRECISION = jax.lax.Precision.HIGH
-
-
-_PRECISION_TABLE = {
-    "highest": jax.lax.Precision.HIGHEST,
-    "high": jax.lax.Precision.HIGH,
-    "default": jax.lax.Precision.DEFAULT,
-}
-
-# The INVERSE transform of the GCC chain gets its own knob: after PHAT
-# whitening every bin has ~unit magnitude, so the dynamic-range argument
-# for multi-pass f32 emulation vanishes — measured on-chip at the
-# flagship shape, single-pass bf16 inverse dots match the bf16x3 inverse
-# to 1.1e-5 samples of τ while cutting the fused pair stage 7.85→5.0 ms
-# (docs/PROBES.md r3). The FORWARD transform keeps the main knob (raw
-# signals have real dynamic range; bf16 there costs ~1e-2 relative).
-_INVERSE_PRECISION = jax.lax.Precision.DEFAULT
-
-
-def set_precision(name: str) -> None:
-    """'highest' (6-pass f32), 'high' (3-pass, default), or 'default' (bf16)."""
-    global _PRECISION
-    if name not in _PRECISION_TABLE:
-        raise ValueError(f"unknown precision {name!r}")
-    _PRECISION = _PRECISION_TABLE[name]
-
-
-def get_precision():
-    return _PRECISION
-
-
-def set_inverse_precision(name: str) -> None:
-    """Precision for the whitened-inverse GCC dots (see note above)."""
-    global _INVERSE_PRECISION
-    if name not in _PRECISION_TABLE:
-        raise ValueError(f"unknown precision {name!r}")
-    _INVERSE_PRECISION = _PRECISION_TABLE[name]
-
-
-def get_inverse_precision():
-    return _INVERSE_PRECISION
-
-
-def _dft_direct(re: jnp.ndarray, im: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    n = re.shape[-1]
-    w_re, w_im = _dft_matrix(n)
-    w_re = jnp.asarray(w_re)
-    w_im = jnp.asarray(w_im)
-    dot = lambda a, b: jnp.dot(
-        a, b, preferred_element_type=jnp.float32, precision=_PRECISION
-    )
-    y_re = dot(re, w_re) - dot(im, w_im)
-    y_im = dot(re, w_im) + dot(im, w_re)
-    return y_re, y_im
-
-
-def _fft_re_im(re: jnp.ndarray, im: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Forward DFT over the last axis of an (re, im) float32 pair."""
-    n = re.shape[-1]
-    if n <= MAX_DIRECT:
-        return _dft_direct(re, im)
-
-    n1, n2 = _split_length(n)
-    batch = re.shape[:-1]
-
-    # A[..., n2, n1] with A[n2, n1] = x[n1 + N1·n2]; inner DFT runs over n2,
-    # so transpose it to the last axis.
-    a_re = jnp.swapaxes(re.reshape(*batch, n2, n1), -1, -2)
-    a_im = jnp.swapaxes(im.reshape(*batch, n2, n1), -1, -2)
-    b_re, b_im = _fft_re_im(a_re, a_im)  # [..., n1, k2]
-
-    t_re, t_im = _twiddle(n1, n2)
-    t_re = jnp.asarray(t_re)
-    t_im = jnp.asarray(t_im)
-    c_re = b_re * t_re - b_im * t_im
-    c_im = b_re * t_im + b_im * t_re
-
-    # Outer DFT over n1: R[..., k1, k2] = Σ_{n1} W1[k1, n1] · C[..., n1, k2].
-    w_re, w_im = _dft_matrix(n1)
-    w_re = jnp.asarray(w_re)
-    w_im = jnp.asarray(w_im)
-    ein = lambda a, b: jnp.einsum(
-        "kn,...nc->...kc", a, b, precision=_PRECISION,
-        preferred_element_type=jnp.float32,
-    )
-    r_re = ein(w_re, c_re) - ein(w_im, c_im)
-    r_im = ein(w_re, c_im) + ein(w_im, c_re)
-    # Flat index k = k2 + N2·k1 → reshape [k1, k2] directly.
-    return r_re.reshape(*batch, n), r_im.reshape(*batch, n)
 
 
 @lru_cache(maxsize=None)
 def friendly_fft_len(min_len: int) -> int:
     """Smallest 5-smooth (2^a·3^b·5^c) length ≥ min_len.
 
-    A matmul FFT costs nfft·(n1+n2) MACs, so padding to the next power of
-    two (up to 2× oversize) is far more expensive than padding to the next
-    smooth composite (≤ ~8% oversize): a 16896-minimum transform costs
-    17280·263 ≈ 4.5M vs 32768·384 ≈ 12.6M complex MACs.
+    cuFFT runs 2-3-5-smooth lengths with its fast radix kernels, so
+    padding to the next smooth composite (≤ ~8% oversize) costs far less
+    than padding to the next power of two (up to 2× oversize): the
+    flagship's 16896-sample minimum pads to 17280, not 32768.
     """
     best = 1 << (int(min_len) - 1).bit_length()  # pow2 fallback
     p5 = 1
@@ -212,99 +42,35 @@ def friendly_fft_len(min_len: int) -> int:
     return best
 
 
-def _pad_or_trim(x: jnp.ndarray, n: Optional[int]) -> jnp.ndarray:
-    if n is None or n == x.shape[-1]:
-        return x
-    if n < x.shape[-1]:
-        return x[..., :n]
-    pad = [(0, 0)] * (x.ndim - 1) + [(0, n - x.shape[-1])]
-    return jnp.pad(x, pad)
-
-
 def fft(x: jnp.ndarray, n: Optional[int] = None, axis: int = -1) -> jnp.ndarray:
-    """Drop-in ``jnp.fft.fft`` over one axis with TPU-safe implementation."""
-    if axis not in (-1, x.ndim - 1):
-        x = jnp.moveaxis(x, axis, -1)
-        out = fft(x, n=n, axis=-1)
-        return jnp.moveaxis(out, -1, axis)
-    x = _pad_or_trim(x, n)
-    if _BACKEND == "pallas":
-        from radio_mapper_tpu.ops.pallas import fft_kernel
-
-        return fft_kernel.fft(x)
-    if not _use_matmul():
-        return jnp.fft.fft(x, axis=-1)
-    re = jnp.real(x).astype(jnp.float32)
-    im = jnp.imag(x).astype(jnp.float32)
-    y_re, y_im = _fft_re_im(re, im)
-    return jax.lax.complex(y_re, y_im)
+    """``jnp.fft.fft`` over one axis, zero-padded or trimmed to ``n``."""
+    return jnp.fft.fft(x, n=n, axis=axis)
 
 
 def ifft(x: jnp.ndarray, n: Optional[int] = None, axis: int = -1) -> jnp.ndarray:
-    """Inverse FFT via the conjugation identity ifft(x) = conj(fft(conj(x)))/N."""
-    if axis not in (-1, x.ndim - 1):
-        x = jnp.moveaxis(x, axis, -1)
-        out = ifft(x, n=n, axis=-1)
-        return jnp.moveaxis(out, -1, axis)
-    x = _pad_or_trim(x, n)
-    if _BACKEND == "pallas":
-        from radio_mapper_tpu.ops.pallas import fft_kernel
-
-        return fft_kernel.ifft(x)
-    if not _use_matmul():
-        return jnp.fft.ifft(x, axis=-1)
-    length = x.shape[-1]
-    y = jnp.conj(fft(jnp.conj(x), axis=-1))
-    return y / length
+    """``jnp.fft.ifft`` over one axis, zero-padded or trimmed to ``n``."""
+    return jnp.fft.ifft(x, n=n, axis=axis)
 
 
-def fftshift(x: jnp.ndarray, axis: int = -1) -> jnp.ndarray:
-    return jnp.fft.fftshift(x, axes=axis)
+def _join(re: jnp.ndarray, im: jnp.ndarray) -> jnp.ndarray:
+    return jax.lax.complex(re.astype(jnp.float32), im.astype(jnp.float32))
 
 
-# Minimum length for the fused Pallas kernel on TPU: below this the
-# [rows, N] tiles are too narrow to feed the MXU well and the plain
-# matmul formulation wins.
-_PALLAS_MIN_N = 4096
-
-
-def _pallas_supported(n: int) -> bool:
-    """Routable to the fused kernel on real TPU: factorization must be
-    Mosaic lane-aligned (see `fft_kernel.mosaic_compatible`) — other
-    lengths compile only in interpret mode and must take the matmul path."""
-    try:
-        from radio_mapper_tpu.ops.pallas import fft_kernel
-
-        return fft_kernel.mosaic_compatible(n)
-    except ImportError:
-        return False
+def _split(z: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    return jnp.real(z), jnp.imag(z)
 
 
 def fft_re_im(
     re: jnp.ndarray, im: jnp.ndarray, n: Optional[int] = None
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Split-representation forward FFT (last axis) for complex-free paths.
+    """Forward FFT over the last axis of an (re, im) float32 pair,
+    zero-padded or trimmed to ``n``."""
+    return _split(jnp.fft.fft(_join(re, im), n=n, axis=-1))
 
-    Some TPU runtimes are shaky on the complex dtype itself; hot paths can
-    carry (re, im) float32 pairs end-to-end and call this directly.
 
-    On TPU, large transforms route to the fused Pallas kernel (whole
-    four-step FFT resident in VMEM — measured 1.3× the XLA matmul
-    formulation on the target chip); small ones and CPU use the XLA
-    matmul path. ``set_backend("matmul")`` forces the XLA formulation.
-    """
-    re = _pad_or_trim(re, n)
-    im = _pad_or_trim(im, n)
-    length = re.shape[-1]
-    if (
-        _BACKEND in ("auto", "pallas")
-        and jax.default_backend() == "tpu"
-        and length >= _PALLAS_MIN_N
-        and _pallas_supported(length)
-    ):
-        from radio_mapper_tpu.ops.pallas import fft_kernel
-
-        return fft_kernel.fft_rows(
-            re.astype(jnp.float32), im.astype(jnp.float32)
-        )
-    return _fft_re_im(re.astype(jnp.float32), im.astype(jnp.float32))
+def ifft_re_im(
+    re: jnp.ndarray, im: jnp.ndarray, n: Optional[int] = None
+) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    """Inverse FFT (1/N normalised) over the last axis of an (re, im)
+    pair, zero-padded or trimmed to ``n``."""
+    return _split(jnp.fft.ifft(_join(re, im), n=n, axis=-1))

@@ -15,12 +15,12 @@ two receivers is measured from the waveforms themselves:
 
 Everything is batched over arbitrary leading dims and all shapes are static:
 FFT length is padded so the ±max_lag region is free of circular aliasing,
-and the peak search is a fixed-size top-k over 2·max_lag+1 lags. On TPU the
-FFTs run as XLA's native FFT and the whitening/multiply fuse into the
+and the peak search is a fixed-size top-k over 2·max_lag+1 lags. The
+FFTs run as XLA's native FFT (cuFFT on the GPU) and the whitening/multiply fuse into the
 surrounding elementwise ops.
 
-A float64 NumPy golden model (:func:`gcc_phat_numpy`) implements the same
-math for the sub-0.1-sample parity tests.
+A float64 NumPy golden model (:func:`radio_mapper_tpu.golden.gcc_phat_numpy`)
+implements the same math for the sub-0.1-sample parity tests.
 """
 
 from __future__ import annotations
@@ -166,7 +166,7 @@ def peaks_from_lag_mags(
 ) -> CorrelationPeak:
     """Peak pick from a ``[..., 2·max_lag+1]`` correlation-magnitude window.
 
-    Shared tail of every GCC path (complex, split-complex, fused Pallas):
+    Shared tail of the split-complex, wideband and pair-EP GCC paths:
     integer argmax → parabolic sub-sample refine → PSR quality.
     """
     k = safe.argmax_last(m) if safe.enabled() else jnp.argmax(m, axis=-1)
@@ -296,7 +296,7 @@ def gcc_phat_all_pairs_coherent(
     The geometry phase e^{−j2πfτ} is identical in every dwell while noise
     cross-terms are random, so R̄ keeps the full capture's τ information
     at 1/K the FFT length — the memory-light alternative to one long
-    correlation: nfft stays ~n instead of ~K·n, so VMEM/HBM per FFT row
+    correlation: nfft stays ~n instead of ~K·n, so memory per FFT row
     shrinks K× (measured equal fix accuracy to the K·n-long correlation
     for *stationary* signals, e.g. 20 kHz noise-like at 5 dB SNR:
     97.3 m median both ways at K ∈ {1, 4, 16}).
@@ -341,48 +341,3 @@ def gcc_phat_all_pairs_coherent(
     return peaks_from_lag_mags(
         jnp.abs(corr), sample_rate_hz=sample_rate_hz, max_lag=max_lag
     )
-
-
-# --- float64 golden model ----------------------------------------------------
-
-
-def gcc_phat_numpy(
-    x: np.ndarray,
-    y: np.ndarray,
-    *,
-    sample_rate_hz: float,
-    max_lag: int,
-    weighting: str = "phat",
-    eps: float = 0.05,
-) -> Tuple[float, float, float]:
-    """Float64 CPU reference of :func:`gcc_phat` (single pair, 1-D inputs).
-
-    Returns ``(lag_samples, tau_s, peak_value)``.
-    """
-    n = x.shape[-1]
-    nfft = fft_ops.friendly_fft_len(n + max_lag)
-    x_f = np.fft.fft(x, n=nfft)
-    y_f = np.fft.fft(y, n=nfft)
-    r = x_f * np.conj(y_f)
-    if weighting == "phat":
-        mag = np.abs(r)
-        r = r / (mag + eps * mag.max() + 1e-30)
-    elif weighting == "scot":
-        d = np.sqrt(np.abs(x_f) ** 2 * np.abs(y_f) ** 2)
-        r = r / (d + eps * d.max() + 1e-30)
-    elif weighting == "roth":
-        d = np.abs(x_f) ** 2
-        r = r / (d + eps * d.max() + 1e-30)
-    elif weighting != "cc":
-        raise ValueError(f"unknown weighting {weighting!r}")
-    corr = np.fft.ifft(r)
-    lags = np.concatenate([corr[nfft - max_lag :], corr[: max_lag + 1]])
-    m = np.abs(lags)
-    k = int(np.argmax(m))
-    delta = 0.0
-    if 1 <= k <= len(m) - 2:
-        denom = m[k - 1] - 2.0 * m[k] + m[k + 1]
-        if abs(denom) > 1e-12:
-            delta = float(np.clip(0.5 * (m[k - 1] - m[k + 1]) / denom, -0.999, 0.999))
-    lag = k - max_lag + delta
-    return lag, lag / sample_rate_hz, float(m[k])

@@ -5,8 +5,8 @@ centered at 127.5; the reference decodes them as
 ``(u8 - 127.5) -> I + jQ`` (``buoy_node.py:392-398``,
 ``iq_stream_client.py:134-159``, ``signal_analyzer.py:27-36``).
 
-On TPU the decode runs on device: the raw ``uint8`` bytes are the cheapest
-thing to DMA into HBM (1 byte/sample-component vs 8 for complex64), so ingest
+The decode runs on device: the raw ``uint8`` bytes are the cheapest
+thing to copy into device memory (1 byte/sample-component vs 8 for complex64), so ingest
 ships bytes and this module widens them next to the compute. All functions are
 jit-friendly and operate on arbitrary leading batch dims.
 """

@@ -9,10 +9,9 @@ query snippet against a batch of stored snippets, invariant to circular
 time shift, amplitude, and carrier phase, so "find this signal again"
 works on waveforms rather than metadata.
 
-TPU-first shape: one batched 256-point DFT matmul per side (256 ≤ the
-direct-DFT limit, a single MXU contraction), an elementwise cross-spectrum,
-and an inverse transform — all in the framework's split re/im float32
-representation (no complex dtype on device).
+Shape: one batched 256-point FFT per side, an elementwise cross-spectrum
+and an inverse transform, in the framework's split re/im float32
+representation.
 """
 
 from __future__ import annotations
@@ -54,9 +53,8 @@ def snippet_match_scores(
     c_re = H_re * Q_re + H_im * Q_im
     c_im = H_im * Q_re - H_re * Q_im
 
-    # ifft(c) = conj(fft(conj(c))) / N in the split representation.
-    y_re, y_im = fft_ops.fft_re_im(c_re, -c_im)
-    corr_mag = jnp.sqrt(y_re**2 + y_im**2) / n
+    y_re, y_im = fft_ops.ifft_re_im(c_re, c_im)
+    corr_mag = jnp.sqrt(y_re**2 + y_im**2)
 
     norm = jnp.sqrt(
         (jnp.sum(h_re**2 + h_im**2, axis=-1))

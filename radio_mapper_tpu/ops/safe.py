@@ -1,24 +1,15 @@
 """Safe-mode primitives: sort-, gather- and argmax-free reductions.
 
-These equivalents use comparisons, reductions, `reduce_window` (on-chip
-verified), `jnp.roll` and iota.
-The round-2 on-chip probe campaign (docs/PROBES.md) established that the
-stock ops they replace (sort/argsort/top_k/gather/median/reduce_window)
-are all *correct* on the target runtime — so this module is a measured
-performance choice, not a correctness shield: specific stock gather
-shapes run pathologically slow there (a [32, 8] → [32, 28] `jnp.take`
-pair expansion measured ~6 ms, dominating the step), the sort-family's
-standalone remote AOT compiles ran minutes, and the safe formulations
-stay in the elementwise/matmul fast path (one-hot contractions ride the
-MXU; the segmented top-k needs ~2 passes over the array). The measured
-stock-vs-safe detector gap is ~0.1 ms on a ~9 ms flagship step.
+These equivalents use comparisons, reductions, `reduce_window`,
+`jnp.roll` and iota in place of the stock sort/top_k/gather/median/argmax
+ops. They were a performance choice for the accelerator the system was
+first built for; the stock ops are correct everywhere.
 
-Selection: each consumer calls :func:`enabled` — by default safe mode is
-on when the backend is TPU and off elsewhere (CPU keeps exact stock XLA
-ops); `set_safe_mode(False)` opts into stock ops (verified correct).
-Numerics: median is bisected to ~1e-4 of the value range (well under
-detection tolerances); everything else is exact, with stock tie-breaking
-(lowest index wins).
+Selection: each consumer calls :func:`enabled`. Safe mode is off unless
+``set_safe_mode(True)`` turns it on, so every backend runs the stock XLA
+ops by default. Numerics: median is bisected to ~1e-4 of the value range
+(well under detection tolerances); everything else is exact, with stock
+tie-breaking (lowest index wins).
 """
 
 from __future__ import annotations
@@ -28,11 +19,11 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 
-_MODE: Optional[bool] = None  # None = auto (TPU → on)
+_MODE: Optional[bool] = None  # None = default (off)
 
 
 def set_safe_mode(on: Optional[bool]) -> None:
-    """Force safe mode on/off, or None to restore auto (TPU → on).
+    """Turn safe mode on/off, or None to restore the default (off).
 
     The flag is consulted at *trace* time: set it before building jitted
     functions; already-compiled programs keep the mode they were traced
@@ -43,9 +34,7 @@ def set_safe_mode(on: Optional[bool]) -> None:
 
 
 def enabled() -> bool:
-    if _MODE is not None:
-        return _MODE
-    return jax.default_backend() == "tpu"
+    return bool(_MODE)
 
 
 def argmax_last(x: jnp.ndarray) -> jnp.ndarray:
@@ -74,44 +63,10 @@ def take_many_last(x: jnp.ndarray, k: jnp.ndarray) -> jnp.ndarray:
     return jnp.stack(outs, axis=-1)
 
 
-def pair_select(
-    x: jnp.ndarray, idx: jnp.ndarray, axis: int = -1, precision=None
-) -> jnp.ndarray:
-    """Gather x along `axis` by a SHARED 1-D index vector, gather-free.
-
-    Equivalent to ``jnp.take(x, idx, axis=axis)`` for axis −1/−2 — but as a
-    one-hot contraction on the MXU. On the target runtime a plain XLA
-    gather of even a [32, 8] → [32, 28] pair expansion measured ~6 ms
-    (dominating the whole pipeline step!); this form is microseconds.
-    Exact by default: one-hot entries are 0.0/1.0 and the contraction runs
-    at Precision.HIGHEST, so f32 values pass through unchanged even though
-    the MXU's default f32 matmul uses lossy bf16 passes. `idx` may be a
-    tracer or static.
-
-    ``precision``: override (e.g. ``Precision.DEFAULT`` = ONE bf16 MXU
-    pass instead of HIGHEST's six). A default-precision select rounds the
-    gathered f32 values through bf16 — ONLY acceptable for consumers that
-    tolerate bf16 inputs, e.g. the PHAT chain's phase-only whitening
-    (the r4 forward-precision argument; τ parity probed r5).
-    """
-    if axis not in (-1, -2):
-        raise ValueError("pair_select supports axis -1 or -2 only")
-    if precision is None:
-        precision = jax.lax.Precision.HIGHEST
-    n = x.shape[axis]
-    idx = jnp.asarray(idx, jnp.int32)
-    onehot = (
-        jnp.arange(n, dtype=jnp.int32)[:, None] == idx[None, :]
-    ).astype(x.dtype)  # [n, P]
-    if axis == -1:
-        return jnp.einsum("...n,np->...p", x, onehot, precision=precision)
-    return jnp.einsum("...nf,np->...pf", x, onehot, precision=precision)
-
-
 # Sliding-max implementation: "window" = one reduce_window pass over a
-# circularly extended array (reduce_window verified on-chip, r2 probe
-# campaign); "roll" = the original log-doubling rolls (kept as fallback —
-# ~6 full-array passes at radius 10 vs ~3 for the window form).
+# circularly extended array; "roll" = the original log-doubling rolls
+# (kept as fallback — ~6 full-array passes at radius 10 vs ~3 for the
+# window form).
 _SLIDING_IMPL = "window"
 
 
@@ -119,7 +74,7 @@ def set_sliding_impl(name: str) -> None:
     """TRACE-TIME routing (same caveat as set_safe_mode): jit caches are
     shared per callable, so flipping this between jax.jit wrappers of the
     same function silently reuses the first trace — give each routing its
-    own def/lambda when A/B-ing (docs/PROBES.md)."""
+    own def/lambda when A/B-ing."""
     global _SLIDING_IMPL
     if name not in ("window", "roll"):
         raise ValueError(name)

@@ -1,6 +1,6 @@
 """Batched spectral analysis: power spectra, Welch averaging, spectrograms.
 
-TPU-native replacement for the per-block FFT analysis scattered through the
+Batched replacement for the per-block FFT analysis scattered through the
 reference (`buoy_node.py:401-405`, `iq_stream_client.py:181-195`,
 `signal_analyzer.py:47-86`, `Code/src/rtl_power.c:631-710`). Everything is
 batched over arbitrary leading dims so hundreds of channels FFT in one XLA
@@ -160,8 +160,8 @@ def estimate_bandwidth_hz(
     f = power_db.shape[-1]
     if smooth_bins > 1:
         if safe.enabled():
-            # Boxcar via static rolls — reduce_window is unproven on the
-            # target runtime (docs/PROBES.md) and smooth_bins is small.
+            # Boxcar via static rolls (safe mode avoids reduce_window;
+            # smooth_bins is small).
             h = smooth_bins // 2
             acc = power_db
             for d in range(1, h + 1):

@@ -1,23 +1,20 @@
 """Split-complex (re, im) float32 versions of the hot pipeline stages.
 
-The target TPU runtime executes float32 programs reliably but is
-unreliable on the complex64 dtype (native FFT UNIMPLEMENTED; complex
-execution paths flaky), and complex arithmetic lowers to real mul/adds
-anyway. This module provides the full detect + GCC-PHAT chain on explicit
-(re, im) float32 pairs — no complex dtype anywhere in the traced program —
-sharing the DFT-matmul machinery of :mod:`radio_mapper_tpu.ops.fft`.
+The uint8 ingest decodes straight into (re, im) float32 planes, and the
+block pipeline's entry points take them in that form
+(:meth:`models.pipeline.TDOAPipeline.step_split`). This module provides
+the detect + GCC-PHAT chain and the channelizer on those pairs, sharing
+the transforms of :mod:`radio_mapper_tpu.ops.fft`.
 
 Numerically identical to the complex path (same operations in the same
-order); tested against it bit-for-bit-ish (≤1e-5) on CPU.
+order); tested against it (≤1e-5) on CPU.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
-import jax
 import jax.numpy as jnp
-import numpy as np
 
 from radio_mapper_tpu.ops import channelizer as pfb
 from radio_mapper_tpu.ops import fft as fft_ops
@@ -46,13 +43,6 @@ def power_spectrum_db_split(re: jnp.ndarray, im: jnp.ndarray) -> jnp.ndarray:
     return 10.0 * jnp.log10(fre * fre + fim * fim + 1e-24)
 
 
-def _ifft_re_im(re: jnp.ndarray, im: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Inverse DFT via conj trick, all-real arithmetic."""
-    n = re.shape[-1]
-    yre, yim = fft_ops.fft_re_im(re, -im)
-    return yre / n, -yim / n
-
-
 def cross_correlate_split(
     xre: jnp.ndarray, xim: jnp.ndarray,
     yre: jnp.ndarray, yim: jnp.ndarray,
@@ -62,35 +52,36 @@ def cross_correlate_split(
     eps: float = 0.05,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Split-complex mirror of :func:`radio_mapper_tpu.ops.gcc_phat.cross_correlate`."""
-    n = xre.shape[-1]
-    if max_lag >= n:
-        raise ValueError(f"max_lag {max_lag} must be < block length {n}")
-    nfft = fft_ops.friendly_fft_len(n + max_lag)
-    pad = lambda a: jnp.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, nfft - n)])
-    xfr, xfi = fft_ops.fft_re_im(pad(xre), pad(xim))
-    yfr, yfi = fft_ops.fft_re_im(pad(yre), pad(yim))
-    # R = X · conj(Y)
+    xfr, xfi, _ = receiver_spectra_split(xre, xim, max_lag=max_lag)
+    yfr, yfi, _ = receiver_spectra_split(yre, yim, max_lag=max_lag)
+    rre, rim = _weighted_cross_spectrum(xfr, xfi, yfr, yfi, weighting, eps)
+    cre, cim = fft_ops.ifft_re_im(rre, rim)
+    return _lag_window(cre, max_lag), _lag_window(cim, max_lag)
+
+
+def _weighted_cross_spectrum(xfr, xfi, yfr, yfi, weighting: str, eps: float):
+    """R = X·conj(Y) with the GCC weighting (phat/scot/roth/cc) applied."""
     rre = xfr * yfr + xfi * yfi
     rim = xfi * yfr - xfr * yfi
-    if weighting != "cc":
-        mag = jnp.sqrt(rre * rre + rim * rim)
-        if weighting == "phat":
-            denom_base = mag
-        elif weighting == "scot":
-            denom_base = jnp.sqrt((xfr * xfr + xfi * xfi) * (yfr * yfr + yfi * yfi))
-        elif weighting == "roth":
-            denom_base = xfr * xfr + xfi * xfi
-        else:
-            raise ValueError(f"unknown weighting {weighting!r}")
-        scale = jnp.max(denom_base, axis=-1, keepdims=True)
-        denom = denom_base + eps * scale + 1e-30
-        rre = rre / denom
-        rim = rim / denom
-    cre, cim = _ifft_re_im(rre, rim)
-    take = lambda a: jnp.concatenate(
-        [a[..., nfft - max_lag :], a[..., : max_lag + 1]], axis=-1
-    )
-    return take(cre), take(cim)
+    if weighting == "cc":
+        return rre, rim
+    if weighting == "phat":
+        denom_base = jnp.sqrt(rre * rre + rim * rim)
+    elif weighting == "scot":
+        denom_base = jnp.sqrt((xfr * xfr + xfi * xfi) * (yfr * yfr + yfi * yfi))
+    elif weighting == "roth":
+        denom_base = xfr * xfr + xfi * xfi
+    else:
+        raise ValueError(f"unknown weighting {weighting!r}")
+    scale = jnp.max(denom_base, axis=-1, keepdims=True)
+    denom = denom_base + eps * scale + 1e-30
+    return rre / denom, rim / denom
+
+
+def _lag_window(a: jnp.ndarray, max_lag: int) -> jnp.ndarray:
+    """Circular correlation → lags −max_lag..max_lag on the last axis."""
+    nfft = a.shape[-1]
+    return jnp.concatenate([a[..., nfft - max_lag :], a[..., : max_lag + 1]], axis=-1)
 
 
 def gcc_phat_split(
@@ -137,8 +128,7 @@ def receiver_spectra_split(
     if max_lag >= n:
         raise ValueError(f"max_lag {max_lag} must be < block length {n}")
     nfft = fft_ops.friendly_fft_len(n + max_lag)
-    pad = lambda a: jnp.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, nfft - n)])
-    fr, fi = fft_ops.fft_re_im(pad(sig_re), pad(sig_im))
+    fr, fi = fft_ops.fft_re_im(sig_re, sig_im, n=nfft)
     return fr, fi, nfft
 
 
@@ -174,348 +164,37 @@ def gcc_phat_all_pairs_split(
         )
 
     i_idx, j_idx = gcc.pair_indices(b)
-    gi = lambda a: jnp.take(a, jnp.asarray(i_idx), axis=-2)
-    gj = lambda a: jnp.take(a, jnp.asarray(j_idx), axis=-2)
-    xfr, xfi = gi(fr), gi(fi)
-    yfr, yfi = gj(fr), gj(fi)
-    # R = X · conj(Y)
-    rre = xfr * yfr + xfi * yfi
-    rim = xfi * yfr - xfr * yfi
-    if weighting != "cc":
-        if weighting == "phat":
-            denom_base = jnp.sqrt(rre * rre + rim * rim)
-        elif weighting == "scot":
-            denom_base = jnp.sqrt((xfr * xfr + xfi * xfi) * (yfr * yfr + yfi * yfi))
-        elif weighting == "roth":
-            denom_base = xfr * xfr + xfi * xfi
-        else:
-            raise ValueError(f"unknown weighting {weighting!r}")
-        scale = jnp.max(denom_base, axis=-1, keepdims=True)
-        denom = denom_base + eps * scale + 1e-30
-        rre = rre / denom
-        rim = rim / denom
-    cre, cim = _ifft_re_im(rre, rim)
-    take = lambda a: jnp.concatenate(
-        [a[..., nfft - max_lag :], a[..., : max_lag + 1]], axis=-1
+    m = pair_lag_mags(
+        fr, fi, i_idx, j_idx, max_lag=max_lag, weighting=weighting, eps=eps
     )
-    cre, cim = take(cre), take(cim)
-    m = jnp.sqrt(cre * cre + cim * cim)
-    k = safe.argmax_last(m) if safe.enabled() else jnp.argmax(m, axis=-1)
-    delta = gcc.parabolic_refine(m, k)
-    lag = k.astype(jnp.float32) - jnp.float32(max_lag) + delta
-    peak = (
-        safe.take1_last(m, k)
-        if safe.enabled()
-        else jnp.take_along_axis(m, k[..., None], axis=-1)[..., 0]
-    )
-    return CorrelationPeakSC(
-        lag_samples=lag,
-        tau_s=lag / jnp.float32(sample_rate_hz),
-        peak_value=peak,
-        psr=gcc.peak_to_sidelobe(m, k, exclude=psr_exclude),
-    )
+    return CorrelationPeakSC(*gcc.peaks_from_lag_mags(
+        m, sample_rate_hz=sample_rate_hz, max_lag=max_lag, psr_exclude=psr_exclude
+    ))
 
 
-# ---------------------------------------------------------------- fused GCC
-
-# "auto": fused Pallas pair stage on TPU when the shape/weighting allow;
-# "on": force (interpret mode off-TPU — for numerics tests); "off": never.
-_GCC_FUSED = "auto"
-
-
-def set_gcc_fused(mode: str) -> None:
-    if mode not in ("auto", "on", "off"):
-        raise ValueError(f"unknown fused-GCC mode {mode!r}")
-    global _GCC_FUSED
-    _GCC_FUSED = mode
-
-
-def gcc_fused_mode() -> str:
-    """Current routing mode ("auto"/"on"/"off") — for callers that need
-    to distinguish an explicit force-on from the auto policy."""
-    return _GCC_FUSED
-
-
-def gcc_fused_enabled(min_len: int, weighting: str) -> bool:
-    """Route the GCC pair stage to the fused Pallas kernel?"""
-    if _GCC_FUSED == "off":
-        return False
-    try:
-        from radio_mapper_tpu.ops.pallas import gcc_kernel
-    except ImportError:  # pragma: no cover
-        return False
-    if not gcc_kernel.supported(gcc_kernel.plan_nfft(min_len), weighting):
-        return False
-    return _GCC_FUSED == "on" or jax.default_backend() == "tpu"
-
-
-# A/B override for the PHAT forward precision (None = auto policy below).
-_GCC_FWD_PRECISION: Optional[str] = None
-
-
-def set_gcc_forward_precision(name: Optional[str]) -> None:
-    """Force the GCC-chain forward precision ('high'/'default'/'highest')
-    or None to restore the per-weighting policy. TRACE-time knob."""
-    global _GCC_FWD_PRECISION
-    _GCC_FWD_PRECISION = name
-
-
-def gcc_forward_precision(weighting: str) -> Optional[str]:
-    """Forward-transform precision for a GCC chain.
-
-    PHAT consumes only cross-spectrum PHASE (magnitude is whitened away),
-    and per-bin bf16 phase noise averages down across the thousands of
-    bins a τ estimate integrates — measured on-chip r4: single-pass bf16
-    forward matches bf16x3 to 4.6e-5 samples of τ while cutting the
-    flagship step 7.46 → 6.80 ms/block (probe_ab_fwd_precision). "cc"
-    keeps the module default (HIGH → bf16x3): the unwhitened correlation
-    carries the signal's real dynamic range.
-    """
-    if _GCC_FWD_PRECISION is not None:
-        return _GCC_FWD_PRECISION
-    return "default" if weighting == "phat" else None
-
-
-# A/B override for the PHAT pair-gather precision (None = auto policy).
-_GCC_GATHER_PRECISION: Optional[str] = None
-
-
-def set_gcc_gather_precision(name: Optional[str]) -> None:
-    """Force the row-aligned pair-gather precision ('highest'/'default')
-    or None to restore the per-weighting policy. TRACE-time knob."""
-    if name not in (None, "highest", "default"):
-        raise ValueError(f"unknown gather precision {name!r}")
-    global _GCC_GATHER_PRECISION
-    _GCC_GATHER_PRECISION = name
-
-
-def gcc_gather_precision(weighting: str):
-    """One-hot pair-gather precision for a GCC chain (a jax Precision).
-
-    The HIGHEST default exists because a default-precision one-hot dot
-    rounds the gathered f32 spectra through bf16 (CLAUDE.md). But the
-    PHAT chain consumes only cross-spectrum PHASE — the same argument
-    that lets its forward FFT run single-pass bf16
-    (:func:`gcc_forward_precision`) covers the gather, at ONE MXU pass
-    instead of HIGHEST's six. "cc" keeps HIGHEST: its correlation
-    carries the signal's real dynamic range. τ parity probed on-chip r5
-    (docs/probe_logs/ab_r5_wideband.log).
-    """
-    name = _GCC_GATHER_PRECISION
-    if name is None:
-        name = "default" if weighting == "phat" else "highest"
-    return (
-        jax.lax.Precision.DEFAULT if name == "default"
-        else jax.lax.Precision.HIGHEST
-    )
-
-
-def receiver_spectra_ct(
-    sig_re: jnp.ndarray, sig_im: jnp.ndarray, *, max_lag: int, vma=None,
-    precision: Optional[str] = None,
-) -> Tuple[jnp.ndarray, jnp.ndarray, int]:
-    """Padded per-receiver CT-order spectra for the fused GCC path.
-
-    Mirror of :func:`receiver_spectra_split` for the Pallas chain:
-    ``(fr, fi, nfft)`` with bins in Cooley-Tukey digit-permuted order
-    (`fft_kernel.fft_rows_ct`). Exposed separately so ONE forward
-    transform feeds both the fused pair stage and the peak detector
-    (via :func:`ct_power_db` — the detection FFT is otherwise a second
-    full pass over every receiver's block). ``precision``: see
-    :func:`gcc_forward_precision`.
-    """
-    from radio_mapper_tpu.ops.pallas import fft_kernel, gcc_kernel
-
-    n = sig_re.shape[-1]
-    if max_lag >= n:
-        raise ValueError(f"max_lag {max_lag} must be < block length {n}")
-    nfft = gcc_kernel.plan_nfft(n + max_lag)
-    pad = lambda a: jnp.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, nfft - n)])
-    fr, fi = fft_kernel.fft_rows_ct(
-        pad(sig_re), pad(sig_im), vma=vma, precision=precision
-    )
-    return fr, fi, nfft
-
-
-def planned_ct_nfft(min_len: int) -> int:
-    """The fused planner's FFT length for ``min_len`` (pipeline routing
-    needs it BEFORE any spectra exist, to pick the detect path)."""
-    from radio_mapper_tpu.ops.pallas import gcc_kernel
-
-    return gcc_kernel.plan_nfft(min_len)
-
-
-def receiver_spectra_ct_detect(
-    sig_re: jnp.ndarray,
-    sig_im: jnp.ndarray,
+def pair_lag_mags(
+    fr: jnp.ndarray,
+    fi: jnp.ndarray,
+    i_idx,
+    j_idx,
     *,
-    max_lag: int,
-    sample_rate_hz: float,
-    threshold_db: float,
-    min_distance_bins: int,
-    dc_notch_hz,
-    confidence_floor: float,
-    snr_fullscale_db: float,
-    power_offset_db: float = 0.0,
-    vma=None,
-    precision: Optional[str] = None,
-    emit_topk: int = 0,
-):
-    """CT-order spectra + detect partials + per-row power max, ONE kernel.
-
-    Combined form of :func:`receiver_spectra_ct` followed by the detect
-    kernel (`detect_kernel.fft_detect_rows_ct`): the spectra never
-    round-trip HBM between the forward transform and detection. Returns
-    ``((fr, fi, nfft), (seg_score, seg_arg, noise_floor_db), row_max)``
-    where ``row_max[..., B]`` is each receiver's max linear spectral
-    power (the per-receiver PHAT-gate input, gcc_kernel "l2rx").
-    ``emit_topk=K`` finishes the peak selection IN-kernel (partials come
-    back as the packed top-K — consume with
-    ``detect_peaks_ct(partials=..., kernel_topk=True)``).
-    """
-    from radio_mapper_tpu.ops.pallas import detect_kernel, gcc_kernel
-
-    n = sig_re.shape[-1]
-    if max_lag >= n:
-        raise ValueError(f"max_lag {max_lag} must be < block length {n}")
-    nfft = gcc_kernel.plan_nfft(n + max_lag)
-    pad = lambda a: jnp.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, nfft - n)])
-    fr, fi, score, arg, nf, rmax = detect_kernel.fft_detect_rows_ct(
-        pad(sig_re), pad(sig_im),
-        sample_rate_hz=sample_rate_hz,
-        threshold_db=threshold_db,
-        min_distance_bins=min_distance_bins,
-        dc_notch_hz=dc_notch_hz,
-        confidence_floor=confidence_floor,
-        snr_fullscale_db=snr_fullscale_db,
-        power_offset_db=power_offset_db,
-        vma=vma,
-        precision=precision,
-        emit_topk=emit_topk,
-    )
-    return (fr, fi, nfft), (score, arg, nf), rmax
-
-
-def flagship_channel_step(
-    sig_re: jnp.ndarray,
-    sig_im: jnp.ndarray,
-    pair_i,
-    pair_j,
-    *,
-    max_lag: int,
-    eps: float,
-    sample_rate_hz: float,
-    threshold_db: float,
-    min_distance_bins: int,
-    dc_notch_hz,
-    confidence_floor: float,
-    snr_fullscale_db: float,
-    power_offset_db: float = 0.0,
-    vma=None,
-):
-    """Megakernel wrapper: pad → FFT×detect×GCC in ONE kernel per channel.
-
-    Returns ``(nfft, (seg_score, seg_arg, noise_floor_db), lag_mags)`` —
-    spectra never reach HBM (see ops/pallas/channel_kernel.py).
-    """
-    from radio_mapper_tpu.ops.pallas import channel_kernel, gcc_kernel
-
-    n = sig_re.shape[-1]
-    if max_lag >= n:
-        raise ValueError(f"max_lag {max_lag} must be < block length {n}")
-    nfft = gcc_kernel.plan_nfft(n + max_lag)
-    pad = lambda a: jnp.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, nfft - n)])
-    score, arg, nf, window = channel_kernel.channel_step_partials(
-        pad(sig_re), pad(sig_im), pair_i, pair_j,
-        max_lag=max_lag, eps=eps,
-        sample_rate_hz=sample_rate_hz,
-        threshold_db=threshold_db,
-        min_distance_bins=min_distance_bins,
-        dc_notch_hz=dc_notch_hz,
-        confidence_floor=confidence_floor,
-        snr_fullscale_db=snr_fullscale_db,
-        power_offset_db=power_offset_db,
-        fwd_precision=gcc_forward_precision("phat"),
-        vma=vma,
-    )
-    return nfft, (score, arg, nf), window
-
-
-def ct_power_db(fr: jnp.ndarray, fi: jnp.ndarray) -> jnp.ndarray:
-    """Natural-bin-order power spectrum (dB) from CT-order split spectra.
-
-    One cheap [n2, n1] transpose of the REAL power array (not both
-    complex planes) un-permutes the bins; values match an nfft-point
-    zero-padded FFT's power spectrum, which preserves tone peak heights
-    and per-bin noise levels of the unpadded transform — detection
-    thresholds and SNR semantics carry over unchanged.
-    """
-    from radio_mapper_tpu.ops.pallas import fft_kernel
-
-    return 10.0 * jnp.log10(fft_kernel.ct_unpermute(fr * fr + fi * fi) + 1e-24)
-
-
-def gcc_phat_all_pairs_split_fused(
-    sig_re: jnp.ndarray,
-    sig_im: jnp.ndarray,
-    *,
-    sample_rate_hz: float,
     max_lag: int,
     weighting: str = "phat",
     eps: float = 0.05,
-    psr_exclude: int = 8,
-    spectra: "Optional[Tuple[jnp.ndarray, jnp.ndarray, int]]" = None,
-    row_smax: Optional[jnp.ndarray] = None,
-) -> CorrelationPeakSC:
-    """All-pairs GCC with the whole pair stage fused in VMEM.
+) -> jnp.ndarray:
+    """Pair stage on per-receiver spectra ``[..., B, nfft]``.
 
-    Numerically equivalent to :func:`gcc_phat_all_pairs_split` up to FFT
-    padding length (the fused planner pads to the next multiple of 128,
-    the matmul path to the next 5-smooth length; both are alias-free for
-    ±max_lag, so peaks match to sub-sample tolerance) and the PHAT eps
-    gate algebra: the kernel uses the l2 soft floor by default
-    (`gcc_kernel._PHAT_GATE` — measured 5% faster, τ parity 7.6e-4
-    samples) while the XLA paths keep the textbook |R|+eps·max form as
-    the independent cross-check; lag parity across routings is asserted
-    in tests at sub-sample tolerance. Forward transforms
-    run once per receiver in CT bin order — no natural-order transpose
-    ever materializes (see ops.pallas.fft_kernel). Pass ``spectra`` (from
-    :func:`receiver_spectra_ct`) to skip even those B transforms.
+    Gathers pair k's spectra (``i_idx[k]``, ``j_idx[k]``; static or
+    traced indices), forms R = X·conj(Y), applies the weighting, inverse
+    transforms and returns ``|r|`` at lags −max_lag..max_lag,
+    ``[..., P, 2·max_lag+1]``.
     """
-    from radio_mapper_tpu.ops.pallas import gcc_kernel
-
-    n = sig_re.shape[-1]
-    b = sig_re.shape[-2]
-    if max_lag >= n:
-        raise ValueError(f"max_lag {max_lag} must be < block length {n}")
-    fr, fi, nfft = (
-        spectra
-        if spectra is not None
-        else receiver_spectra_ct(
-            sig_re, sig_im, max_lag=max_lag,
-            precision=gcc_forward_precision(weighting),
-        )
-    )
-    if nfft < n + max_lag or fr.shape[-1] != nfft:
-        raise ValueError(
-            f"provided spectra (nfft={nfft}, last dim {fr.shape[-1]}) violate the "
-            f"alias-free bound for block {n} + max_lag {max_lag}"
-        )
-    i_idx, j_idx = gcc.pair_indices(b)
-    mags = gcc_kernel.gcc_pair_lag_mags(
-        fr, fi, i_idx, j_idx, max_lag=max_lag, eps=eps, weighting=weighting,
-        row_smax=row_smax,
-    )
-    pk = gcc.peaks_from_lag_mags(
-        mags, sample_rate_hz=sample_rate_hz, max_lag=max_lag,
-        psr_exclude=psr_exclude,
-    )
-    return CorrelationPeakSC(
-        lag_samples=pk.lag_samples,
-        tau_s=pk.tau_s,
-        peak_value=pk.peak_value,
-        psr=pk.psr,
-    )
+    gi = lambda a: jnp.take(a, jnp.asarray(i_idx), axis=-2)
+    gj = lambda a: jnp.take(a, jnp.asarray(j_idx), axis=-2)
+    rre, rim = _weighted_cross_spectrum(gi(fr), gi(fi), gj(fr), gj(fi), weighting, eps)
+    cre, cim = fft_ops.ifft_re_im(rre, rim)
+    cre, cim = _lag_window(cre, max_lag), _lag_window(cim, max_lag)
+    return jnp.sqrt(cre * cre + cim * cim)
 
 
 def channelize_split(
@@ -555,8 +234,7 @@ def channelize_split(
     cre = jnp.moveaxis(cre, -1, -2)
     cim = jnp.moveaxis(cim, -1, -2)
     if shift:
-        # fftshift is a pure rotation — roll instead of a permutation
-        # gather (rolls are proven fast on the target runtime).
+        # fftshift is a pure rotation
         cre = jnp.roll(cre, m // 2, axis=-2)
         cim = jnp.roll(cim, m // 2, axis=-2)
     return cre, cim

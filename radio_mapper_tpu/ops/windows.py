@@ -5,7 +5,7 @@ Covers the window set of the reference's `rtl_power` scanner
 blackman-harris, hann-poisson, bartlett, youssef/kaiser) implemented as
 pure functions returning float32 arrays, computed eagerly with NumPy so the
 coefficients are constants baked into the jit graph (they never change at
-runtime — no reason to spend TPU cycles re-deriving them).
+runtime — no reason to spend device cycles re-deriving them).
 """
 
 from __future__ import annotations

@@ -2,14 +2,14 @@
 
 Continuous DSP over a time-sharded stream needs each shard to see the tail
 of its left neighbor (filter/channelizer history) — the classic
-overlap-save layout. On TPU the exchange is one `jax.lax.ppermute` hop over
-the "blk" mesh axis: a single ICI neighbor transfer per step, fully
+overlap-save layout. The exchange is one `jax.lax.ppermute` hop over
+the "blk" mesh axis: a single neighbor transfer per step, fully
 overlappable with compute by XLA's scheduler.
 
 The reference has no equivalent — its stream blocks are processed
 independently and inter-block signal continuity is simply lost
 (`iq_stream_client.py:496-503`, SURVEY §5 "long-context"). These helpers
-are what make the TPU pipeline gap-free.
+are what make the sharded pipeline gap-free.
 
 All functions must be called inside `shard_map` (they use collectives over
 a named axis) with the time axis as the *last* array axis.

@@ -26,7 +26,7 @@ def make_mesh(
     """Create a mesh over the available devices.
 
     Default: a 2-D ("ch", "blk") mesh with a near-square factorization —
-    channels shard one way, time blocks the other, so ICI neighbors carry
+    channels shard one way, time blocks the other, so neighboring devices carry
     the overlap-save halos while DP rides the orthogonal axis.
     """
     devices = list(devices) if devices is not None else jax.devices()

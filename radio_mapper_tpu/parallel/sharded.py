@@ -13,8 +13,9 @@ Mapping onto classic parallelism dimensions:
                  `all_gather` (the reference's sequential pair loop,
                  `tdoa_processor.py:156-193`);
   PP           — the detect→correlate→solve stages remain one fused XLA
-                 program per shard by design: on TPU, staging through HBM
-                 between "pipeline stages" would only add bandwidth cost.
+                 program per shard by design: staging through device
+                 memory between "pipeline stages" would only add
+                 bandwidth cost.
 
 The step is a single jitted `shard_map` program: channelize (with halo) →
 per-subchannel all-pairs GCC-PHAT → confidence-weighted LM solve →
@@ -129,32 +130,21 @@ def build_sharded_step(mesh: Mesh, config: ShardedStepConfig):
     return step, in_shardings
 
 
-def build_sharded_step_split(mesh: Mesh, config: ShardedStepConfig):
-    """Split-complex variant of :func:`build_sharded_step` — the program a
-    real multi-chip TPU pod runs (the target runtime cannot execute
-    complex64). Inputs are (re, im) float32 ``[C, B, N]`` pairs sharded
-    identically to the complex path."""
-    cfg = config
+def _halo_len(cfg: ShardedStepConfig) -> int:
+    """Channelizer history a time segment needs from its left neighbour."""
+    return (cfg.taps_per_channel - 1) * cfg.num_subchannels
+
+
+def _segment_step_split(cfg: ShardedStepConfig):
+    """One time segment of the split step: ``(re_ext, im_ext, anchors)``
+    whose first :func:`_halo_len` samples are the previous segment's tail
+    → :class:`ShardedStepOutput` with a leading segment axis of 1."""
     i_idx, j_idx = gcc_ops.pair_indices(cfg.num_buoys)
     pair_i = jnp.asarray(i_idx)
     pair_j = jnp.asarray(j_idx)
     sub_rate = cfg.sample_rate_hz / cfg.num_subchannels
-    history = (cfg.taps_per_channel - 1) * cfg.num_subchannels
-    # Fused Pallas pair stage on TPU meshes (r5): the unfused XLA GCC
-    # materializes [C_l, M, P, nfft] pair spectra and full-length inverse
-    # FFTs of which only ±max_lag samples are read — on-chip the fused
-    # routing took the config-5 16-ch/chip share from 13.6 ms (bare
-    # real-time) to a real margin (docs/probe_logs/ab_r5_scale2.log).
-    # Mesh-platform guard mirrors pair_ep.py: a compiled Pallas call
-    # cannot lower for virtual-CPU dryrun meshes.
-    fused_mesh = (
-        mesh.devices.flat[0].platform == "tpu"
-        or sc_ops.gcc_fused_mode() == "on"
-    )
 
-    def local_step(re_l, im_l, anchors):
-        re_ext = with_left_halo(re_l, "blk", history)
-        im_ext = with_left_halo(im_l, "blk", history)
+    def segment(re_ext, im_ext, anchors):
         ch_re, ch_im = sc_ops.channelize_split(
             re_ext, im_ext, cfg.num_subchannels,
             sample_rate_hz=cfg.sample_rate_hz,
@@ -162,13 +152,7 @@ def build_sharded_step_split(mesh: Mesh, config: ShardedStepConfig):
         )  # [C_l, B, M, F]
         sub_re = jnp.moveaxis(ch_re, 1, 2)  # [C_l, M, B, F]
         sub_im = jnp.moveaxis(ch_im, 1, 2)
-        f_len = sub_re.shape[-1]
-        gcc_fn = (
-            sc_ops.gcc_phat_all_pairs_split_fused
-            if fused_mesh and sc_ops.gcc_fused_enabled(f_len + cfg.max_lag, "phat")
-            else sc_ops.gcc_phat_all_pairs_split
-        )
-        corr = gcc_fn(
+        corr = sc_ops.gcc_phat_all_pairs_split(
             sub_re, sub_im, sample_rate_hz=sub_rate, max_lag=cfg.max_lag
         )
         weights = jnp.clip((corr.psr - cfg.psr_floor) / cfg.psr_scale, 0.0, 1.0) + 1e-3
@@ -183,6 +167,24 @@ def build_sharded_step_split(mesh: Mesh, config: ShardedStepConfig):
             cost=res.cost[None],
         )
 
+    return segment
+
+
+def build_sharded_step_split(mesh: Mesh, config: ShardedStepConfig):
+    """Split-complex variant of :func:`build_sharded_step`, on the (re, im)
+    float32 planes the uint8 ingest produces. Inputs are ``[C, B, N]``
+    pairs sharded identically to the complex path."""
+    cfg = config
+    history = _halo_len(cfg)
+    segment = _segment_step_split(cfg)
+
+    def local_step(re_l, im_l, anchors):
+        return segment(
+            with_left_halo(re_l, "blk", history),
+            with_left_halo(im_l, "blk", history),
+            anchors,
+        )
+
     in_specs = (P("ch", None, "blk"), P("ch", None, "blk"), P())
     out_specs = ShardedStepOutput(
         fixes_enu=P("blk", "ch"),
@@ -191,15 +193,35 @@ def build_sharded_step_split(mesh: Mesh, config: ShardedStepConfig):
         cost=P("blk", "ch"),
     )
     step = jax.jit(
-        jax.shard_map(
-            local_step, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-            # the fused Pallas pair stage declares no vma annotations;
-            # CPU meshes (tests/dryruns) keep the static checker
-            check_vma=not fused_mesh,
-        )
+        jax.shard_map(local_step, mesh=mesh, in_specs=in_specs, out_specs=out_specs)
     )
     in_shardings = tuple(NamedSharding(mesh, sp) for sp in in_specs)
     return step, in_shardings
+
+
+def reference_step_split(config: ShardedStepConfig, re, im, anchors, *,
+                         time_shards: int, device=None) -> ShardedStepOutput:
+    """What :func:`build_sharded_step_split` computes over a mesh with
+    ``time_shards`` on "blk", on one device: the time axis is cut into
+    segments and each is given its left neighbour's tail (zeros for the
+    first) by slicing instead of the halo ``ppermute``."""
+    cfg = config
+    history = _halo_len(cfg)
+    re, im = np.asarray(re), np.asarray(im)
+    seg_len = re.shape[-1] // time_shards
+    zeros = np.zeros((*re.shape[:-1], history), re.dtype)
+    device = device or jax.devices()[0]
+    segment = jax.jit(_segment_step_split(cfg))
+    anchors = jax.device_put(np.asarray(anchors), device)
+    outs = []
+    for s in range(time_shards):
+        lo, hi = s * seg_len, (s + 1) * seg_len
+        ext = [
+            np.concatenate([x[..., lo - history:lo] if s else zeros, x[..., lo:hi]], axis=-1)
+            for x in (re, im)
+        ]
+        outs.append(segment(*jax.device_put(ext, device), anchors))
+    return jax.tree.map(lambda *xs: jnp.concatenate(xs), *outs)
 
 
 def example_inputs(mesh: Mesh, config: ShardedStepConfig, *, samples_per_shard: int = 512, seed: int = 0):

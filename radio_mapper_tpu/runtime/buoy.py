@@ -13,7 +13,7 @@ here one asyncio task group runs
   comms       — auto-reconnect with 5→60 s exponential backoff
                 (`buoy_node.py:565-602`).
 
-Detection itself is the TPU/JAX detector from :mod:`radio_mapper_tpu.ops`
+Detection itself is the JAX detector from :mod:`radio_mapper_tpu.ops`
 — the same jitted program the batch pipeline uses, so a buoy's on-node
 numbers match the central pipeline bit-for-bit.
 """
@@ -131,10 +131,8 @@ class BuoyNode:
             )
 
             def fn(re, im):
-                # Split-complex spectrum: no complex dtype in the traced
-                # program — standalone complex elementwise jit is
-                # UNIMPLEMENTED on the target runtime (docs/PROBES.md),
-                # so the live buoy detector mirrors the pipeline's path.
+                # Split-complex spectrum: the live buoy detector mirrors
+                # the pipeline's step_split path.
                 power_db = sc_ops.power_spectrum_db_split(re, im) + offset_db
                 peaks = detect_ops.detect_peaks(
                     power_db,

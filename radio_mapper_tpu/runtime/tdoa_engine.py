@@ -301,8 +301,8 @@ class TDoAEngine:
         )
         max_lag = self._waveform_max_lag(buoy_ids, n, fs)
         # The service plane correlates small snippet groups host-side; the
-        # TPU runs the bulk pipeline (models.pipeline). Pinning to CPU also
-        # keeps the central service independent of chip/runtime health.
+        # device runs the bulk pipeline (models.pipeline). Pinning to CPU
+        # also keeps the central service independent of device health.
         import jax
 
         with jax.default_device(jax.devices("cpu")[0]):

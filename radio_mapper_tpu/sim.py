@@ -12,7 +12,7 @@ TDOA to sub-0.1-sample accuracy (BASELINE config 1).
 Delays are applied in the frequency domain (phase ramp on the block DFT),
 which is *exact* for the periodic block — no interpolation error can leak
 into the 0.1-sample parity budget. Signals are generated in float64 NumPy
-(golden model); :func:`batch_blocks` ships them to device for TPU runs.
+(golden model); :func:`batch_blocks` ships them to the device.
 """
 
 from __future__ import annotations
@@ -211,11 +211,11 @@ def synthesize(scenario: Scenario) -> Capture:
     )
 
 
-def quantize_uint8(capture: Capture, *, target_rms_counts: float = 32.0) -> np.ndarray:
-    """Simulate the RTL-SDR 8-bit frontend: scale, round, clip, decode back.
+def to_uint8(capture: Capture, *, target_rms_counts: float = 32.0) -> np.ndarray:
+    """Simulate the RTL-SDR 8-bit frontend: scale, round, clip.
 
-    Returns ``[B, N]`` complex128 decoded from uint8 exactly as the reference
-    decodes dongle bytes (`buoy_node.py:392-398`).
+    Returns the ``[B, 2N]`` interleaved I/Q bytes a dongle would deliver,
+    scaled so the capture's RMS is ``target_rms_counts``.
     """
     rms = np.sqrt(np.mean(np.abs(capture.iq) ** 2)) + 1e-30
     scaled = capture.iq * (target_rms_counts / rms)
@@ -223,7 +223,15 @@ def quantize_uint8(capture: Capture, *, target_rms_counts: float = 32.0) -> np.n
     raw = np.empty((b, 2 * n), dtype=np.uint8)
     raw[:, 0::2] = np.clip(np.round(scaled.real + 127.5), 0, 255).astype(np.uint8)
     raw[:, 1::2] = np.clip(np.round(scaled.imag + 127.5), 0, 255).astype(np.uint8)
-    return iq_ops.decode_uint8_iq_numpy(raw)
+    return raw
+
+
+def quantize_uint8(capture: Capture, *, target_rms_counts: float = 32.0) -> np.ndarray:
+    """:func:`to_uint8`, decoded back: ``[B, N]`` complex128 exactly as the
+    reference decodes dongle bytes (`buoy_node.py:392-398`)."""
+    return iq_ops.decode_uint8_iq_numpy(
+        to_uint8(capture, target_rms_counts=target_rms_counts)
+    )
 
 
 def default_scenario(
@@ -288,7 +296,7 @@ def synthesize_wideband(
     geometric delay (frequency-domain phase ramp — same technique as
     :func:`_apply_delay`), plus unit-variance complex noise. Returns
     ``(re, im)`` float32 of shape ``[B, cfg.wide_block]``. Shared by the
-    CLI `wideband` demo, the config-4 tests and the on-chip probe.
+    CLI `wideband` demo, the config-4 tests and ``chip_smoke.py``.
     """
     rng = np.random.default_rng(seed)
     b, n, fs = cfg.num_buoys, cfg.wide_block, cfg.wide_rate_hz

@@ -3,7 +3,7 @@
 Replaces the reference's scipy BFGS minimization of squared-residual sums
 (`tdoa_processor.py:218-328`), which its own docs describe as unstable
 (`Documents/TDOA_README.md:49-52`), with a damped Gauss-Newton /
-Levenberg-Marquardt solver designed for TPU:
+Levenberg-Marquardt solver designed for a batched accelerator:
 
 - fixed iteration count via `lax.scan` (no data-dependent control flow);
 - the normal-equation solve is a tiny batched 3×3 `jnp.linalg.solve`;
@@ -280,9 +280,9 @@ def solve_tdoa_impl(
     lam0 = jnp.full(dd_m.shape[:-1], 1e-3, jnp.float32)
     if axis_name is None:
         lam0 = lam0 + 0.0 * dd_m[..., 0]
-    # unroll: each LM iteration is tiny (3×3 algebra over the batch), so on
-    # TPU the scan is dispatch-latency-bound; unrolling packs 5 iterations
-    # per XLA while-step.
+    # unroll: each LM iteration is tiny (3×3 algebra over the batch), so
+    # the scan is launch-latency-bound; unrolling packs 5 iterations per
+    # XLA while-step.
     (x, _, cost), _ = jax.lax.scan(
         step, (x0, lam0, cost_fn(x0)), None, length=iterations,
         unroll=min(5, iterations),

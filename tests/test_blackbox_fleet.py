@@ -10,6 +10,7 @@ in-process handles anywhere.
 
 import json
 import os
+import socket
 import subprocess
 import sys
 import time
@@ -18,7 +19,17 @@ import urllib.request
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WS_PORT, HTTP_PORT, WEB_PORT = 18971, 18972, 18973
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+# Ports the OS hands out now, not fixed numbers other tests may hold
+# under parallel workers.
+WS_PORT, HTTP_PORT, WEB_PORT = _free_port(), _free_port(), _free_port()
 
 
 def _get(url, timeout=5.0):

@@ -3,6 +3,7 @@ fans out to live buoy nodes over WS and aggregates ranked matches."""
 
 import asyncio
 import datetime
+import socket
 
 import numpy as np
 
@@ -19,16 +20,22 @@ def _det(buoy_id, f_mhz):
     )
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def test_distributed_waveform_search_live():
-    asyncio.run(_drive())
+    asyncio.run(_drive(_free_port(), _free_port()))
 
 
-async def _drive():
+async def _drive(ws_port, http_port):
     import aiohttp
 
     from radio_mapper_tpu.runtime.central import CentralProcessor
 
-    central = CentralProcessor(host="127.0.0.1", ws_port=18731, http_port=18732)
+    central = CentralProcessor(host="127.0.0.1", ws_port=ws_port, http_port=http_port)
     await central.start()
     rng = np.random.default_rng(11)
     q = (rng.normal(size=256) + 1j * rng.normal(size=256)).astype(np.complex64)
@@ -43,7 +50,7 @@ async def _drive():
             node = BuoyNode(
                 BuoyNodeConfig(
                     buoy_id=f"ds-{k}", development_mode=True,
-                    central_ws_url="ws://127.0.0.1:18731",
+                    central_ws_url=f"ws://127.0.0.1:{ws_port}",
                 )
             )
             d = _det(f"ds-{k}", 121.5)
@@ -60,7 +67,7 @@ async def _drive():
         pattern = [[float(v.real), float(v.imag)] for v in q]
         async with aiohttp.ClientSession() as http:
             async with http.post(
-                "http://127.0.0.1:18732/api/search_signal",
+                f"http://127.0.0.1:{http_port}/api/search_signal",
                 json={"iq_pattern": pattern, "min_score": 0.5, "timeout_s": 10.0},
             ) as r:
                 body = await r.json()
@@ -74,7 +81,7 @@ async def _drive():
         # Metadata-only search still behaves as before (central fix buffer).
         async with aiohttp.ClientSession() as http:
             async with http.post(
-                "http://127.0.0.1:18732/api/search_signal", json={}
+                f"http://127.0.0.1:{http_port}/api/search_signal", json={}
             ) as r:
                 assert r.status == 400
     finally:

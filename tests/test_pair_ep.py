@@ -160,56 +160,6 @@ def test_pair_ep_64_buoys_2016_pairs():
     assert np.asarray(out.lags).shape[0] >= 2016
 
 
-def test_pair_ep_fused_kernel_routing_matches_unfused():
-    """VERDICT r2 item 8: the EP pair slice routed through the fused
-    Pallas GCC kernel (interpret mode on CPU) matches the matmul path.
-
-    The kernel's static pair table is satisfied by stacking the one-hot-
-    gathered X/Y spectra as 2·P_loc pseudo-receivers with pairs (k, P+k).
-    """
-    from radio_mapper_tpu.ops import split_complex as sc_ops
-    from radio_mapper_tpu.ops.pallas import gcc_kernel
-
-    cfg = PairEPConfig(
-        num_buoys=8, block_len=4096, sample_rate_hz=2_048_000.0, max_lag=256,
-    )
-    if not gcc_kernel.supported(
-        gcc_kernel.plan_nfft(cfg.block_len + cfg.max_lag), cfg.weighting
-    ):
-        pytest.skip("fused planner does not support this length")
-    scen = sim.default_scenario(
-        block_len=4096, snr_db=25.0, seed=11, bandwidth_hz=500e3,
-        buoys=[
-            (f"b{k}", 35.40 + 0.05 * (k % 4), -97.60 + 0.06 * (k // 4), 0.0)
-            for k in range(8)
-        ],
-    )
-    cap = sim.synthesize(scen)
-    mesh = _mesh()
-
-    def run():
-        step, shardings, (pi, pj) = build_pair_ep_step(mesh, cfg)
-        re = jax.device_put(cap.iq.real.astype(np.float32), shardings[0])
-        im = jax.device_put(cap.iq.imag.astype(np.float32), shardings[1])
-        anchors = jax.device_put(cap.buoy_enu.astype(np.float32), shardings[2])
-        return step(re, im, anchors), pi
-
-    out_unfused, pi = run()
-    sc_ops.set_gcc_fused("on")  # forces fused even off-TPU (interpret)
-    try:
-        out_fused, _ = run()
-    finally:
-        sc_ops.set_gcc_fused("auto")
-    np.testing.assert_allclose(
-        np.asarray(out_fused.lags)[: len(pi)],
-        np.asarray(out_unfused.lags)[: len(pi)],
-        atol=0.05,
-    )
-    np.testing.assert_allclose(
-        np.asarray(out_fused.fix_enu), np.asarray(out_unfused.fix_enu), atol=5.0
-    )
-
-
 def test_pair_ep_output_carries_ellipse():
     """The EP step's replicated fix includes its error ellipse fields."""
     mesh = _mesh()

@@ -3,6 +3,7 @@
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 from jax.sharding import PartitionSpec as P
 
 from radio_mapper_tpu.models.streaming import StreamingChannelizer, sharded_channelize
@@ -133,6 +134,26 @@ def test_sharded_step_equals_single_device():
     np.testing.assert_allclose(
         np.asarray(out8.lags)[0], np.asarray(out1.lags)[0], atol=1e-3
     )
+
+
+@pytest.mark.parametrize("shape", [(2, 4), (1, 8), (8, 1)])
+def test_split_sharded_step_equals_one_device_reference(shape):
+    """Every time shard, halo included, == the sliced one-device step."""
+    from radio_mapper_tpu.parallel.sharded import (
+        build_sharded_step_split,
+        example_inputs_split,
+        reference_step_split,
+    )
+
+    cfg = ShardedStepConfig(num_channels=8, num_buoys=3, num_subchannels=4, max_lag=8)
+    msh = mesh_lib.make_mesh(shape, ("ch", "blk"))
+    step, _ = build_sharded_step_split(msh, cfg)
+    re, im, anchors = example_inputs_split(msh, cfg, samples_per_shard=256, seed=7)
+    out = step(re, im, anchors)
+    ref = reference_step_split(cfg, re, im, anchors, time_shards=shape[1])
+    assert ref.lags.shape == out.lags.shape == (shape[1], 8, 4, cfg.num_pairs)
+    np.testing.assert_allclose(np.asarray(out.lags), np.asarray(ref.lags), atol=1e-4)
+    np.testing.assert_allclose(np.asarray(out.weights), np.asarray(ref.weights), atol=1e-4)
 
 
 def test_split_sharded_step_matches_complex():

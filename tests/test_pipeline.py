@@ -3,7 +3,6 @@
 import dataclasses
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 
 from radio_mapper_tpu import sim
@@ -106,11 +105,9 @@ def test_example_inputs_compile():
 
 
 def test_freq_offset_portable_across_fused_and_unfused_paths():
-    """PeakSet.bin_index is path-dependent (block_len vs nfft grids) but
-    freq_offset_hz must agree across routings within one bin spacing —
-    the portability contract documented on PeakSet."""
-    from radio_mapper_tpu.ops import split_complex as sc_ops
-
+    """PeakSet.freq_offset_hz is the portable frequency field: the split
+    (re, im) step and the complex step must report the same tone
+    frequency, within one bin spacing."""
     scen = sim.default_scenario(
         signal="tone", bandwidth_hz=1.0, snr_db=30.0, seed=4,
         emitter_lat=35.46, emitter_lng=-97.50,
@@ -128,23 +125,19 @@ def test_freq_offset_portable_across_fused_and_unfused_paths():
             power_offset_db=40.0,
         )
     )
-    outs = {}
-    for mode in ("on", "off"):
-        sc_ops.set_gcc_fused(mode)
-        try:
-            step = jax.jit(lambda r, i, a, _m=mode: pipe.step_split(r, i, a))
-            outs[mode] = step(
-                jnp.asarray(iq.real), jnp.asarray(iq.imag),
-                jnp.asarray(cap.buoy_enu, jnp.float32),
-            )
-        finally:
-            sc_ops.set_gcc_fused("auto")
+    anchors = jnp.asarray(cap.buoy_enu, jnp.float32)
+    outs = {
+        "split": pipe.jit_step_split()(
+            jnp.asarray(iq.real), jnp.asarray(iq.imag), anchors
+        ),
+        "complex": pipe.jit_step()(jnp.asarray(iq), anchors),
+    }
     bin_hz = scen.sample_rate_hz / scen.block_len
     for b in range(4):
-        f_on = float(np.asarray(outs["on"].peaks.freq_offset_hz)[b, 0])
-        f_off = float(np.asarray(outs["off"].peaks.freq_offset_hz)[b, 0])
-        assert abs(f_on - 250_000.0) < 2 * bin_hz, f_on
-        assert abs(f_on - f_off) < 2 * bin_hz, (f_on, f_off)
+        f_s = float(np.asarray(outs["split"].peaks.freq_offset_hz)[b, 0])
+        f_c = float(np.asarray(outs["complex"].peaks.freq_offset_hz)[b, 0])
+        assert abs(f_s - 250_000.0) < 2 * bin_hz, f_s
+        assert abs(f_s - f_c) < 2 * bin_hz, (f_s, f_c)
 
 
 def test_multidwell_validates_capture_length():

@@ -133,30 +133,6 @@ def test_gcc_identical_under_safe_mode():
     assert abs(float(a.psr) - float(b.psr)) < 1e-3
 
 
-def test_pair_select_matches_take():
-    import numpy as np
-    import jax.numpy as jnp
-    from radio_mapper_tpu.ops import safe
-
-    rng = np.random.default_rng(5)
-    x = jnp.asarray(rng.normal(size=(4, 8)).astype(np.float32))
-    idx = jnp.asarray([0, 3, 7, 7, 1], jnp.int32)
-    got = safe.pair_select(x, idx, axis=-1)
-    want = jnp.take(x, idx, axis=-1)
-    assert np.array_equal(np.asarray(got), np.asarray(want))  # exact
-
-    x2 = jnp.asarray(rng.normal(size=(2, 8, 33)).astype(np.float32))
-    got2 = safe.pair_select(x2, idx, axis=-2)
-    want2 = jnp.take(x2, idx, axis=-2)
-    assert np.array_equal(np.asarray(got2), np.asarray(want2))
-
-    xc = jnp.asarray((rng.normal(size=(3, 6, 9)) + 1j * rng.normal(size=(3, 6, 9))).astype(np.complex64))
-    idxc = jnp.asarray([5, 0, 2], jnp.int32)
-    gotc = safe.pair_select(xc, idxc, axis=-2)
-    wantc = jnp.take(xc, idxc, axis=-2)
-    assert np.array_equal(np.asarray(gotc), np.asarray(wantc))
-
-
 def test_top_k_segmented_matches_flat_on_separated_candidates():
     """With candidates ≥ segment apart (the sliding-local-max guarantee),
     segmented and flat top-k agree exactly, including tie-breaks and

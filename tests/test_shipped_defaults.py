@@ -1,58 +1,57 @@
-"""Pin the probe-validated defaults (r5).
+"""Pin the defaults the GPU bring-up chose.
 
-Every routing/precision default below was chosen by an on-chip A/B
-(docs/PROBES.md) — an accidental flip (e.g. a test forgetting to restore
-a trace-time knob, or a refactor changing a literal) would silently ship
-a slower or numerically different configuration. This module runs LAST
-alphabetically-neutral but is order-independent: it reloads nothing and
-reads the module constants, which setters must restore."""
+The pipeline has one route per stage: XLA's FFT for every transform, exact
+gathers for the pair spectra, stock XLA reductions (safe mode off). A
+refactor that brought back a matmul DFT, a one-hot gather or a platform
+branch would change what runs on the card; these tests fail first."""
 
-import os
 import re
 from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+
+from test_fft import primitives
 
 REPO = Path(__file__).resolve().parents[1]
 
 
 def test_kernel_routing_defaults():
-    from radio_mapper_tpu.ops import detect as detect_ops
+    from radio_mapper_tpu.ops import safe
     from radio_mapper_tpu.ops import split_complex as sc_ops
-    from radio_mapper_tpu.ops.pallas import channel_kernel, gcc_kernel
 
-    # probed r4/r5 winners
-    assert gcc_kernel._PHAT_GATE == "l2rx"
-    assert gcc_kernel._PAIR_GATHER == "onehot"
-    assert gcc_kernel.DEFAULT_PAIR_CHUNK == 32
-    # probed-neutral features stay available but OFF
-    assert channel_kernel._MEGA == "off"
-    assert detect_ops._COMBINED_TOPK is False
-    # auto routings
-    assert sc_ops._GCC_FUSED == "auto"
-    assert detect_ops._FUSED_DETECT == "auto"
-    assert detect_ops._FUSED_FFT_DETECT == "auto"
-    assert sc_ops._GCC_FWD_PRECISION is None
-    assert sc_ops._GCC_GATHER_PRECISION is None
+    # stock reductions/gathers everywhere unless a caller opts in
+    assert safe._MODE is None and safe.enabled() is False
+    # the pair stage is FFT → elementwise → inverse FFT, no dot_general
+    # (the only dots left on the path are the solver's 3×3 algebra)
+    re_ = jnp.zeros((2, 4, 1024), jnp.float32)
+    jaxpr = jax.make_jaxpr(
+        lambda a, b: sc_ops.gcc_phat_all_pairs_split(a, b, sample_rate_hz=2.4e6, max_lag=64)
+    )(re_, re_)
+    prims = primitives(jaxpr.jaxpr)
+    assert prims.count("fft") == 2, prims  # one forward, one inverse
+    assert "dot_general" not in prims
 
 
 def test_precision_policies():
-    import jax
-
+    from radio_mapper_tpu.models.wideband import WidebandConfig, WidebandTDOAPipeline
     from radio_mapper_tpu.ops import fft as fft_ops
-    from radio_mapper_tpu.ops import split_complex as sc_ops
 
-    # PHAT chains: single-pass bf16 forward, inverse and gathers;
-    # generic/cc keep the high-precision forms (probed τ parity ≤1e-2)
-    assert sc_ops.gcc_forward_precision("phat") == "default"
-    assert sc_ops.gcc_forward_precision("cc") is None
-    assert sc_ops.gcc_gather_precision("phat") == jax.lax.Precision.DEFAULT
-    assert sc_ops.gcc_gather_precision("cc") == jax.lax.Precision.HIGHEST
-    assert fft_ops.get_precision() == jax.lax.Precision.HIGH  # bf16x3
-    assert fft_ops.get_inverse_precision() == jax.lax.Precision.DEFAULT
+    # no precision knobs remain: XLA's FFT has no matmul precision
+    for gone in ("set_precision", "set_inverse_precision", "MAX_DIRECT", "set_backend"):
+        assert not hasattr(fft_ops, gone), gone
+    # the wideband pair spectra are exact row gathers, not one-hot dots
+    pipe = WidebandTDOAPipeline(WidebandConfig(
+        num_buoys=6, wide_rate_hz=2_048_000.0, num_subchannels=4,
+        sub_block=256, max_lag=16,
+    ))
+    x = jnp.zeros((6, 256), jnp.float32)
+    prims = primitives(jax.make_jaxpr(pipe._pair_stage)(x, x).jaxpr)
+    assert "gather" in prims and "dot_general" not in prims
 
 
 def test_bench_scan_default():
-    # depth-64 adopted late r5 (ab_r5_flag64: 4.81-4.87 -> 4.72 ms/block
-    # both interleaved rounds; stacks clamped <=8.6 GB per channel count)
+    # scan depth 64 stays the bench default until it is measured on the GPU
     src = (REPO / "bench.py").read_text()
     m = re.search(r'BENCH_SCAN_BLOCKS", "(\d+)"', src)
     assert m and m.group(1) == "64", m

@@ -5,7 +5,7 @@ item 6 / BASELINE config 5): N processes each own a slice of a GLOBAL
 device mesh, `jax.distributed.initialize` wires them together, and the
 same `build_sharded_step_split` program runs over the global mesh with
 each process feeding only its addressable shards — exactly how a real
-multi-host TPU pod is driven, with CPU devices standing in for chips.
+multi-host GPU cluster is driven, with CPU devices standing in for cards.
 
 Usage (the test launches this twice):
 
